@@ -1,0 +1,217 @@
+"""Batching inference server for the de-id pipeline (single device).
+
+Port of ``ppvision_tpu/serve.py``: callers submit source images (any
+count); the server packs them into fixed-shape batches, keeps ``depth``
+batches in flight, and yields per-request results in submission order.
+
+- **Fixed shapes**: the last batch is padded by repeating its last
+  image, and the padding outputs are dropped.  Zeros would not do: an
+  all-zero frame makes the camera's per-image max-normalize 0/0, and
+  the generator's skip mean spans the whole batch, so one NaN pad would
+  poison every output of the batch.
+- **Pipelined dispatch**: CUDA work is enqueued asynchronously; the
+  input goes up through pinned memory without a sync, and the one sync
+  is the ``.cpu()`` of batch t - depth when batch t is dispatched.
+- **Styles fixed per server**, as in the eval workload.
+
+Multi-device serving (the JAX server's ``mesh``) joins with the
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from .deid import DeIdBundle, deid_multi_style
+
+__all__ = ["DeIdServer"]
+
+
+class DeIdServer:
+    """Fixed-batch pipelined de-id inference: ``serve(images)`` maps an
+    iterable of (H, W, 3) float arrays to a generator of (R, H, W, 3)
+    outputs (one per source, R styles each), in order."""
+
+    def __init__(
+        self,
+        bundle: DeIdBundle,
+        x_ref: np.ndarray,
+        y_ref: np.ndarray,
+        batch_size: int = 128,
+        depth: int = 4,
+        out_space: str = "float32",
+    ):
+        """``out_space``: "float32" yields raw pipeline outputs; "uint8"
+        converts to saved-image space on the device with the exact
+        ``clip(x*255, 0, 255)`` math (4x fewer bytes to the host)."""
+        if batch_size < 1 or depth < 1:
+            raise ValueError("batch_size and depth must be >= 1")
+        if out_space not in ("float32", "uint8"):
+            raise ValueError(f"out_space must be float32|uint8, got {out_space}")
+        self._bundle = bundle
+        self._batch = batch_size
+        self._depth = depth
+        self._out_space = out_space
+        self._x_ref = torch.as_tensor(np.asarray(x_ref, np.float32)).to(bundle.device)
+        self._y_ref = torch.as_tensor(np.asarray(y_ref, np.int64)).to(bundle.device)
+        self._latencies: list[float] = []
+        self._batches_dispatched = 0
+        self._completed = 0
+        self._pending_gauge = 0
+        self._inflight_gauge = 0
+        self._max_queue_depth = 0
+
+    def stats(self) -> dict:
+        """Request count, dispatched-batch count, per-request latency
+        quantiles (submission -> result on host, seconds), and queue
+        gauges: ``pending`` (waiting for a batch), ``inflight_batches``
+        (dispatched, not drained), ``max_queue_depth`` (max pending +
+        in-flight requests observed)."""
+        lat = np.asarray(self._latencies, np.float64)
+        q = lambda p: float(np.quantile(lat, p)) if lat.size else None  # noqa: E731
+        return dict(
+            completed=self._completed,
+            batches_dispatched=self._batches_dispatched,
+            latency_p50_s=q(0.50),
+            latency_p99_s=q(0.99),
+            latency_max_s=float(lat.max()) if lat.size else None,
+            pending=self._pending_gauge,
+            inflight_batches=self._inflight_gauge,
+            max_queue_depth=self._max_queue_depth,
+        )
+
+    def reset_stats(self) -> None:
+        self._latencies = []
+        self._batches_dispatched = 0
+        self._completed = 0
+        self._max_queue_depth = 0
+
+    def warmup(self) -> None:
+        """Run one batch ahead of the first request (builds the kernels
+        and fills the caches).  Mid-gray, not zeros: see the module doc."""
+        n = self._bundle.cfg.model.img_size
+        dummy = np.full((self._batch, n, n, 3), 0.5, np.float32)
+        self._dispatch(dummy).cpu()
+
+    def _dispatch(self, batch_np: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(batch_np)
+        if self._bundle.device.type == "cuda":
+            x = x.pin_memory().to(self._bundle.device, non_blocking=True)
+        out = deid_multi_style(self._bundle, x, self._x_ref, self._y_ref)
+        if self._out_space == "uint8":
+            out = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
+        return out
+
+    def serve(
+        self, images: Iterable[np.ndarray], max_wait_s: float | None = None
+    ) -> Iterator[np.ndarray]:
+        """Yield one (R, H, W, 3) output per input image, in order.
+
+        ``max_wait_s``: flush deadline for partial batches.  With it, a
+        pending partial batch is padded and dispatched once the oldest
+        pending request has waited ``max_wait_s`` seconds (the input
+        iterable is then pulled on a background thread so a blocked
+        producer cannot stall the deadline)."""
+        n = self._bundle.cfg.model.img_size
+        # (result, valid count, arrival timestamps of the valid requests)
+        inflight: list[tuple[torch.Tensor, int, list[float]]] = []
+
+        def note_depth(n_pending: int) -> None:
+            self._pending_gauge = n_pending
+            self._inflight_gauge = len(inflight)
+            self._max_queue_depth = max(
+                self._max_queue_depth, n_pending + len(inflight) * self._batch
+            )
+
+        def drain(entry):
+            fakes, valid, arrivals = entry
+            host = fakes.cpu().numpy()  # (R, B, H, W, 3): the only sync point
+            done = time.monotonic()
+            self._latencies.extend(done - t for t in arrivals)
+            self._completed += valid
+            self._inflight_gauge = len(inflight)
+            for i in range(valid):
+                yield host[:, i]
+
+        def check(img) -> np.ndarray:
+            img = np.asarray(img, dtype=np.float32)
+            if img.shape != (n, n, 3):
+                raise ValueError(f"expected ({n}, {n}, 3) image, got {img.shape}")
+            return img
+
+        def dispatch(pending: list[np.ndarray], arrivals: list[float]) -> None:
+            k = self._batch - len(pending)
+            batch = np.stack(pending + [pending[-1]] * k)
+            inflight.append((self._dispatch(batch), len(pending), arrivals))
+            self._batches_dispatched += 1
+            note_depth(0)
+
+        pending: list[np.ndarray] = []
+        arrivals: list[float] = []
+        if max_wait_s is None:
+            for img in images:
+                pending.append(check(img))
+                arrivals.append(time.monotonic())
+                note_depth(len(pending))
+                if len(pending) == self._batch:
+                    dispatch(pending, arrivals)
+                    pending, arrivals = [], []
+                    if len(inflight) > self._depth:
+                        yield from drain(inflight.pop(0))
+        else:
+            q: queue.Queue = queue.Queue(maxsize=2 * self._batch)
+            end = object()
+            errs: list[BaseException] = []
+
+            def pull():
+                try:
+                    for img in images:
+                        q.put(img)
+                except BaseException as e:  # surfaced after the drain
+                    errs.append(e)
+                finally:
+                    q.put(end)
+
+            t = threading.Thread(target=pull, daemon=True)
+            t.start()
+            oldest: float | None = None
+            done = False
+            while not done:
+                timeout = None if oldest is None else max(0.0, oldest + max_wait_s - time.monotonic())
+                try:
+                    item = q.get(timeout=timeout)
+                except queue.Empty:
+                    # Deadline hit: dispatch the padded partial batch and
+                    # drain everything in flight.
+                    dispatch(pending, arrivals)
+                    pending, arrivals, oldest = [], [], None
+                    while inflight:
+                        yield from drain(inflight.pop(0))
+                    continue
+                if item is end:
+                    if errs:
+                        raise errs[0]
+                    done = True
+                    continue
+                pending.append(check(item))
+                arrivals.append(time.monotonic())
+                note_depth(len(pending))
+                if oldest is None:
+                    oldest = time.monotonic()
+                if len(pending) == self._batch:
+                    dispatch(pending, arrivals)
+                    pending, arrivals, oldest = [], [], None
+                    if len(inflight) > self._depth:
+                        yield from drain(inflight.pop(0))
+            t.join()
+        if pending:
+            dispatch(pending, arrivals)
+        while inflight:
+            yield from drain(inflight.pop(0))
+        self._inflight_gauge = 0

@@ -1,0 +1,129 @@
+"""The port's kernels on the card, each against its plain PyTorch
+version, and the de-id path through all four of them.
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports torch, numpy and the port only (no JAX), so it also runs on a
+machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
+from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
+from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
+from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev() -> torch.device:
+    """The card, or a skip: decided inside the test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,b", [(128, 8), (256, 2)])
+def test_fftconv_kernel_matches_plain(dev, n, b):
+    rng = np.random.default_rng(0)
+    img = _randn(rng, (b, n, n, 3)).to(dev)
+    otf = torch.fft.fft2(_randn(rng, (n, n, 3)).to(dev), dim=(0, 1))
+    args = (img, otf.real.contiguous(), otf.imag.contiguous())
+    before = fftconv_circular.launches
+    got = fftconv_circular(*args)
+    assert fftconv_circular.launches == before + 1
+    want = fftconv_circular_ref(*args)
+    # f32 FFTs of O(1) data; relative to the output scale (sums of n^2 terms).
+    assert float((got - want).abs().max()) <= 2e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("f,h", [(128, 64), (256, 64), (256, 32), (256, 4), (128, 5)])
+def test_dense_block_kernel_matches_plain(dev, f, h):
+    rng = np.random.default_rng(1)
+    half, quarter = f // 2, f // 4
+    x = _randn(rng, (4, h, h, f)).to(dev, torch.bfloat16)
+    ks = [
+        _randn(rng, s, 1 / math.sqrt(9 * s[2])).to(dev, torch.bfloat16)
+        for s in ((3, 3, f, half), (3, 3, half, quarter), (3, 3, quarter, quarter))
+    ]
+    bns = [(1 + _randn(rng, (c,), 0.1).to(dev), _randn(rng, (c,), 0.1).to(dev)) for c in (f, half, quarter)]
+    before = fused_dense_block.launches
+    got = fused_dense_block(x, *ks, *bns).float()
+    assert fused_dense_block.launches == before + 1
+    want = dense_block_ref(x, *ks, *bns).float()
+    # bf16 convs, f32 sums in another order: direct-conv error scale.
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128, 128), (8, 8, 8, 512), (3, 5, 7, 48)])
+def test_moments_kernel_matches_plain(dev, shape):
+    x = _randn(np.random.default_rng(2), shape).to(dev, torch.bfloat16)
+    before = instance_moments.launches
+    m, m2 = instance_moments(x)
+    assert instance_moments.launches == before + 1
+    rm, rm2 = _moments_ref(x)
+    assert float((m - rm).abs().max()) <= 1e-5
+    assert float((m2 - rm2).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "shape", [(8, 128, 128, 128, 128), (8, 64, 64, 128, 256), (10, 4, 4, 512, 512), (2, 5, 7, 48, 32)]
+)
+def test_conv3x3_kernel_matches_plain(dev, shape):
+    b, h, w, c, k = shape
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (b, h, w, c)).to(dev, torch.bfloat16)
+    ker = _randn(rng, (3, 3, c, k), 1 / math.sqrt(9 * c)).to(dev, torch.bfloat16)
+    before = conv3x3.launches
+    got = conv3x3(x, ker).float()
+    assert conv3x3.launches == before + 1
+    want = conv3x3_ref(x, ker).float()
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((1, 8, 8, 24), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        conv3x3(x, torch.zeros((3, 3, 24, 16), dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError):
+        fused_dense_block(x.float(), *([None] * 3), *([None] * 3))
+
+
+def test_deid_path_runs_every_kernel_and_matches_cpu(dev):
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig
+    from ppvision_tpu_torch.deid import build_deid, deid_multi_style
+    from ppvision_tpu_torch.ops import KERNELS
+
+    rng = np.random.default_rng(4)
+    xs = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
+    xr = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
+    yr = torch.tensor([0, 1])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = FaceDeIdConfig(
+            model=ModelConfig(img_size=64, style_dim=16, latent_dim=8, max_conv_dim=64,
+                              compute_dtype=dtype),
+            camera=CameraConfig(n=32),
+        )
+        for d in ("cuda", "cpu"):
+            for fn in KERNELS.values():
+                fn.launches = 0
+            out[dtype, d] = deid_multi_style(build_deid(0, cfg, device=d), xs, xr, yr).cpu().numpy()
+            if d == "cuda" and dtype == "bfloat16":
+                assert all(fn.launches > 0 for fn in KERNELS.values())
+    ref = out["float32", "cpu"]
+    assert np.abs(out["float32", "cuda"] - ref).max() <= 2e-3 * max(1.0, np.abs(ref).max())
+    # bf16: no further from the CPU bf16 run than that run is from f32.
+    gap = np.abs(out["bfloat16", "cpu"] - ref).max()
+    assert np.abs(out["bfloat16", "cuda"] - out["bfloat16", "cpu"]).max() <= 1.5 * gap + 1e-3

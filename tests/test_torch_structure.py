@@ -1,0 +1,125 @@
+"""Structure of the port: it imports no JAX, its weights round-trip to
+the JAX package through the reference's key names, its entry points
+refuse to run on a missing GPU, and its server batches without changing
+results."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ppvision_tpu.utils import torch_import as ti
+from ppvision_tpu_torch.deid import build_deid, deid_multi_style
+from ppvision_tpu_torch.serve import DeIdServer
+from ppvision_tpu_torch.utils import jax_params
+
+from .torch_parity import TINY, jax_bundle, numpy_tree, torch_cfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import ppvision_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ppvision_tpu_torch.__path__, "ppvision_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ppvision_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 20 and bad.strip() == "[]"
+
+
+@pytest.fixture(scope="module")
+def jb():
+    return jax_bundle("float32")
+
+
+def _assert_same_tree(a, b):
+    fa, ta = jax.tree_util.tree_flatten_with_path(a)
+    fb, tb = jax.tree_util.tree_flatten_with_path(b)
+    assert ta == tb
+    for (path, x), (_, y) in zip(fa, fb):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=str(path))
+
+
+def test_weights_round_trip_through_reference_names(jb):
+    """JAX tree -> jax_params -> port module -> state_dict() ->
+    torch_import.*_params_from_torch gives back the same tree, bit for
+    bit: the port's key names are the reference's."""
+    p = numpy_tree(jb.params)
+    tb = build_deid(0, torch_cfg("float32"), device="cpu")
+    jax_params.load_deid_params(tb, p)
+    sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}  # noqa: E731
+    size, width = TINY["img_size"], TINY["max_conv_dim"]
+    _assert_same_tree(ti.fan_params_from_torch(sd(tb.fan)), p.fan_priv)
+    _assert_same_tree(
+        ti.generator_params_from_torch(sd(tb.generator), img_size=size, max_conv_dim=width), p.generator
+    )
+    _assert_same_tree(ti.mapping_params_from_torch(sd(tb.mapping_network)), p.mapping_network)
+    _assert_same_tree(
+        ti.style_encoder_params_from_torch(sd(tb.style_encoder), img_size=size, max_conv_dim=width),
+        p.style_encoder,
+    )
+    cam = ti.camera_params_from_torch(sd(tb.camera))
+    np.testing.assert_array_equal(cam.zernike_train, p.camera.zernike_train)
+    np.testing.assert_array_equal(cam.zernike_frozen, p.camera.zernike_frozen)
+
+
+def test_entry_points_refuse_a_missing_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_deid(0, torch_cfg())
+
+
+@pytest.fixture(scope="module")
+def server_setup():
+    bundle = build_deid(0, torch_cfg("bfloat16"), device="cpu")
+    rng = np.random.default_rng(1)
+    xr = rng.random((2, 64, 64, 3)).astype(np.float32)
+    yr = np.array([0, 1])
+    imgs = [rng.random((64, 64, 3)).astype(np.float32) for _ in range(5)]
+    return bundle, xr, yr, imgs
+
+
+def test_server_pads_by_repetition_and_matches_direct_calls(server_setup):
+    bundle, xr, yr, imgs = server_setup
+    server = DeIdServer(bundle, xr, yr, batch_size=2, depth=1)
+    server.warmup()
+    outs = list(server.serve(imgs))
+    assert len(outs) == 5 and all(o.shape == (2, 64, 64, 3) for o in outs)
+    direct = lambda batch: deid_multi_style(  # noqa: E731
+        bundle, torch.from_numpy(np.stack(batch)), torch.from_numpy(xr), torch.from_numpy(yr)
+    ).numpy()
+    first = direct(imgs[:2])
+    np.testing.assert_array_equal(outs[0], first[:, 0])
+    np.testing.assert_array_equal(outs[1], first[:, 1])
+    # The tail batch is [imgs[4], imgs[4]]: padding repeats the last image.
+    np.testing.assert_array_equal(outs[4], direct([imgs[4], imgs[4]])[:, 0])
+    assert all(np.isfinite(o).all() for o in outs)
+    st = server.stats()
+    assert st["completed"] == 5 and st["batches_dispatched"] == 3 and st["inflight_batches"] == 0
+
+
+def test_server_uint8_is_byte_identical_to_host_conversion(server_setup):
+    bundle, xr, yr, imgs = server_setup
+    f32 = list(DeIdServer(bundle, xr, yr, batch_size=2).serve(imgs[:3]))
+    u8 = list(DeIdServer(bundle, xr, yr, batch_size=2, out_space="uint8").serve(imgs[:3], max_wait_s=5.0))
+    for f, u in zip(f32, u8):
+        assert u.dtype == np.uint8
+        np.testing.assert_array_equal(u, np.clip(f * 255.0, 0, 255).astype(np.uint8))
