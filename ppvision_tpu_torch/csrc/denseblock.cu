@@ -18,27 +18,26 @@
 // 14x14xF input, its 12x12 o1 and 10x10 o2 stay in shared memory and
 // only x and the output touch HBM.
 //
-// Each conv stage is an implicit GEMM on WMMA 16x16x16 bf16 tiles with
-// f32 accumulators.  Outputs are computed over the full padded width of
+// Each conv stage is an implicit GEMM on mma.sync m16n8k16 (bf16 in,
+// f32 accumulate).  Outputs are computed over the full padded width of
 // their input tile, so the A operand of tap (dy, dx) for 16 consecutive
 // output positions is 16 consecutive rows of the shared tile starting
-// at offset dy*width + dx: one load_matrix_sync with ldm = channels.
-// The columns past the valid width are discarded in the epilogue.  The
-// weights are staged in shared memory 16 input channels at a time, and
-// each warp holds a block of row x column accumulator tiles, so every
-// fragment it loads feeds several MMAs.
-#include <mma.h>
-
+// at offset dy*width + dx: one ldmatrix.x4.  The columns past the valid
+// width are discarded in the epilogue.  The weights pass through shared
+// memory 16 input channels at a time; each warp holds a block of row x
+// 32-channel accumulator tiles, so every fragment it loads feeds several
+// MMAs.  All shared rows are padded by 8 elements so ldmatrix phases hit
+// distinct banks.
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kT = 8;  // output tile edge
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;  // extra elements a shared row
 
 constexpr int kR1 = kT + 6;  // h1 tile edge (x + 3-pixel halo)
 constexpr int kR2 = kT + 4;  // o1 / h2 tile edge
@@ -59,33 +58,32 @@ __device__ __forceinline__ bf16 bn_relu(bf16 v, bf16 mul, bf16 add) {
 }
 
 // One 3x3 conv stage over a shared tile of `width` positions a row:
-// act (positions x CIN, row-major) * w (9 x CIN x COUT, global) ->
-// epi(r, n, v) for linear output position r (same width) and output
-// channel n.  The weights pass through shared memory 16 input channels
-// at a time (wbuf, rows padded by 8 elements against bank conflicts);
-// the warps split the output WM row tiles x WN column tiles each, so a
-// fragment loaded from shared memory feeds several MMAs.
+// act (positions x (CIN + kPad)) * w (9 x CIN x COUT, global) ->
+// epi(r, n, v) for linear output position r (same width), output
+// channel n and its f32 sum v.
 template <int CIN, int COUT, int MT, int WIDTH, typename Epi>
-__device__ void conv_stage(const bf16* act, const bf16* __restrict__ w, bf16* wbuf, float* stage,
-                           Epi epi) {
-  constexpr int NT = COUT / 16;
-  constexpr int WN = NT >= 2 ? 2 : 1;  // column tiles per warp
-  constexpr int NG = NT / WN;  // warp groups along the columns
-  constexpr int MG = kWarps / NG > 0 ? kWarps / NG : 1;  // warps along the rows
-  constexpr int WM = (MT + MG - 1) / MG;  // row tiles per warp
-  constexpr int WLD = COUT + 8;
-  static_assert(NG * MG <= kWarps, "more warp groups than warps");
+__device__ void conv_stage(const bf16* act, const bf16* __restrict__ w, bf16* wbuf, Epi epi) {
+  constexpr int ALD = CIN + kPad;
+  constexpr int WLD = COUT + kPad;
+  constexpr int NG = COUT / 32;  // warps across the columns, 32 channels each
+  constexpr int MG = kWarps / NG;  // warps down the rows
+  constexpr int WM = (MT + MG - 1) / MG;  // 16-row tiles a warp
+  static_assert(COUT % 32 == 0 && NG * MG == kWarps, "stage shape");
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int ng = warp % NG, mg = warp / NG;
-  const int m0 = mg * WM;
-  const int mcnt = mg < MG ? max(0, min(WM, MT - m0)) : 0;
+  const int n0 = (warp % NG) * 32;
+  const int m0 = (warp / NG) * WM;
+  const int mcnt = max(0, min(WM, MT - m0));
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + ((lane / 8) % 2) * 8, b_col = (lane / 16) * 8;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[WM][WN];
+  float acc[WM][4][4];
 #pragma unroll
   for (int i = 0; i < WM; ++i)
 #pragma unroll
-    for (int j = 0; j < WN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   for (int k0 = 0; k0 < CIN; k0 += 16) {
     __syncthreads();  // the previous chunk's weights are consumed
@@ -100,34 +98,35 @@ __device__ void conv_stage(const bf16* act, const bf16* __restrict__ w, bf16* wb
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const int off = (tap / 3) * WIDTH + (tap % 3);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfrag[WN];
+        unsigned b[2][4];
 #pragma unroll
-        for (int j = 0; j < WN; ++j) {
-          wmma::load_matrix_sync(bfrag[j], wbuf + tap * 16 * WLD + (ng * WN + j) * 16, WLD);
+        for (int p = 0; p < 2; ++p) {
+          ldsm_x4_trans(b[p], wbuf + (tap * 16 + b_row) * WLD + n0 + p * 16 + b_col);
         }
 #pragma unroll
         for (int i = 0; i < WM; ++i) {
           if (i < mcnt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-            wmma::load_matrix_sync(afrag, act + ((m0 + i) * 16 + off) * CIN + k0, CIN);
+            unsigned a[4];
+            ldsm_x4(a, act + ((m0 + i) * 16 + a_row + off) * ALD + k0 + a_col);
 #pragma unroll
-            for (int j = 0; j < WN; ++j) wmma::mma_sync(acc[i][j], afrag, bfrag[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j) {
+              mma_16816(acc[i][j], a, b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
+            }
           }
         }
       }
     }
   }
+  // Accumulator (i, j) element e sits at row 16(m0 + i) + lane/4 (+8 for
+  // e >= 2) and channel n0 + 8j + 2(lane%4) (+1 for odd e).
 #pragma unroll
   for (int i = 0; i < WM; ++i) {
+    if (i < mcnt) {
 #pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      if (i < mcnt) {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          epi((m0 + i) * 16 + e / 16, (ng * WN + j) * 16 + e % 16, stage[e]);
-        }
-        __syncwarp();
+      for (int e = 0; e < 4; ++e) {
+        const int r = (m0 + i) * 16 + lane / 4 + (e / 2) * 8;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) epi(r, n0 + j * 8 + (lane % 4) * 2 + e % 2, acc[i][j][e]);
       }
     }
   }
@@ -140,12 +139,12 @@ denseblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
                   const float* __restrict__ bn, bf16* __restrict__ out, int H, int W) {
   constexpr int HALF = F / 2;
   constexpr int Q = F / 4;
+  constexpr int L1 = F + kPad, L2 = HALF + kPad, L3 = Q + kPad;  // shared row lengths
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* h1 = reinterpret_cast<bf16*>(smem_raw);  // kP1 x F
-  bf16* h2 = h1 + kP1 * F;                       // kP2 x HALF
-  bf16* h3 = h2 + kP2 * HALF;                    // kP3 x Q
-  float* stage = reinterpret_cast<float*>(h3 + kP3 * Q);  // kWarps x 256
-  bf16* bnb = reinterpret_cast<bf16*>(stage + kWarps * 256);  // 6 x F
+  bf16* h1 = reinterpret_cast<bf16*>(smem_raw);  // kP1 x L1
+  bf16* h2 = h1 + kP1 * L1;                      // kP2 x L2
+  bf16* h3 = h2 + kP2 * L2;                      // kP3 x L3
+  bf16* bnb = h3 + kP3 * L3;                     // 6 x F
   bf16* wbuf = bnb + 6 * F;  // one 16-channel slice of a stage's weights
 
   const int tiles_x = (W + kT - 1) / kT;
@@ -156,8 +155,8 @@ denseblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
   const bf16 zero = __float2bfloat16(0.f);
 
   for (int i = threadIdx.x; i < 6 * F; i += kThreads) bnb[i] = __float2bfloat16(bn[i]);
-  for (int i = kR2 * kR2 * HALF + threadIdx.x; i < kP2 * HALF; i += kThreads) h2[i] = zero;
-  for (int i = kR3 * kR3 * Q + threadIdx.x; i < kP3 * Q; i += kThreads) h3[i] = zero;
+  for (int i = kR2 * kR2 * L2 + threadIdx.x; i < kP2 * L2; i += kThreads) h2[i] = zero;
+  for (int i = kR3 * kR3 * L3 + threadIdx.x; i < kP3 * L3; i += kThreads) h3[i] = zero;
   __syncthreads();
 
   // h1 = bn_relu1(x) over the tile plus a 3-pixel halo; zero outside the
@@ -178,41 +177,37 @@ denseblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = zero;
     }
-    *reinterpret_cast<uint4*>(h1 + pos * F + cv) = *reinterpret_cast<uint4*>(v);
+    *reinterpret_cast<uint4*>(h1 + pos * L1 + cv) = *reinterpret_cast<uint4*>(v);
   }
-  __syncthreads();
 
-  float* my_stage = stage + (threadIdx.x / 32) * 256;
   // Stage 1: o1 over the 12x12 region (offset -2), computed at width kR1.
-  conv_stage<F, HALF, kMT1, kR1>(h1, k1, wbuf, my_stage, [&](int r, int n, float acc) {
+  conv_stage<F, HALF, kMT1, kR1>(h1, k1, wbuf, [&](int r, int n, float acc) {
     const int py = r / kR1, px = r % kR1;
     if (py >= kR2 || px >= kR2) return;
     const int gy = y0 - 2 + py, gx = x0 - 2 + px;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
     const bf16 o = __float2bfloat16(acc);
-    h2[(py * kR2 + px) * HALF + n] = in ? bn_relu(o, bnb[2 * F + n], bnb[3 * F + n]) : zero;
+    h2[(py * kR2 + px) * L2 + n] = in ? bn_relu(o, bnb[2 * F + n], bnb[3 * F + n]) : zero;
     if (in && py >= 2 && py < 2 + kT && px >= 2 && px < 2 + kT) {
       const size_t p = (img + gy * W + gx) * F + n;
       out[p] = __hadd(o, x[p]);
     }
   });
-  __syncthreads();
   // Stage 2: o2 over the 10x10 region (offset -1), at width kR2.
-  conv_stage<HALF, Q, kMT2, kR2>(h2, k2, wbuf, my_stage, [&](int r, int n, float acc) {
+  conv_stage<HALF, Q, kMT2, kR2>(h2, k2, wbuf, [&](int r, int n, float acc) {
     const int py = r / kR2, px = r % kR2;
     if (py >= kR3 || px >= kR3) return;
     const int gy = y0 - 1 + py, gx = x0 - 1 + px;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
     const bf16 o = __float2bfloat16(acc);
-    h3[(py * kR3 + px) * Q + n] = in ? bn_relu(o, bnb[4 * F + n], bnb[5 * F + n]) : zero;
+    h3[(py * kR3 + px) * L3 + n] = in ? bn_relu(o, bnb[4 * F + n], bnb[5 * F + n]) : zero;
     if (in && py >= 1 && py < 1 + kT && px >= 1 && px < 1 + kT) {
       const size_t p = (img + gy * W + gx) * F + HALF + n;
       out[p] = __hadd(o, x[p]);
     }
   });
-  __syncthreads();
   // Stage 3: o3 over the 8x8 tile, at width kR3.
-  conv_stage<Q, Q, kMT3, kR3>(h3, k3, wbuf, my_stage, [&](int r, int n, float acc) {
+  conv_stage<Q, Q, kMT3, kR3>(h3, k3, wbuf, [&](int r, int n, float acc) {
     const int py = r / kR3, px = r % kR3;
     if (py >= kT || px >= kT) return;
     const int gy = y0 + py, gx = x0 + px;
@@ -224,9 +219,8 @@ denseblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
 
 template <int F>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (kP1 * F + kP2 * (F / 2) + kP3 * (F / 4) + 6 * F +
-                         9 * 16 * (F / 2 + 8)) +
-         sizeof(float) * kWarps * 256;
+  return sizeof(bf16) * (kP1 * (F + kPad) + kP2 * (F / 2 + kPad) + kP3 * (F / 4 + kPad) + 6 * F +
+                         9 * 16 * (F / 2 + kPad));
 }
 
 template <int F>

@@ -17,34 +17,32 @@
 // shared memory with cp.async, double-buffered so the next slice loads
 // while the tensor cores work on this one.  Output positions are
 // computed over the window's full width of 16, so the A operand of tap
-// (dy, dx) for 16 consecutive positions is 16 consecutive window rows at
-// offset dy*16 + dx, one load_matrix_sync; the two discarded columns cost
-// 12.5% extra MMAs.  The 8 warps split the 128 x 128 block tile 2 x 4:
-// each holds 4 x 2 accumulator tiles, so every fragment it loads from
-// shared memory feeds 2 to 4 MMAs.  The weight rows are padded by 8
-// elements so fragment loads do not conflict on shared-memory banks.
-// The weights are the (3, 3, C, K) bf16 copy the conv module prepares
-// once from its f32 master.
-#include <mma.h>
-
+// (dy, dx) for a 16-row tile is 16 consecutive window rows at offset
+// dy*16 + dx; the two discarded columns cost 12.5% extra MMAs.  The 8
+// warps split the 128 x 128 block tile 2 x 4; each warp holds a 64 x 32
+// tile of f32 accumulators and feeds mma.sync m16n8k16 from ldmatrix
+// loads (4 for A and 2 transposed ones for B per 16 input channels and
+// tap, for 16 MMAs).  Window and weight rows are padded so the ldmatrix
+// phases hit distinct shared-memory banks.  The weights are the
+// (3, 3, C, K) bf16 copy the conv module prepares once from its f32
+// master.
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTH = 8, kTW = 14;
 constexpr int kWP = kTW + 2;  // window width
 constexpr int kMT = kTH * kWP / 16;  // 8 row tiles
 constexpr int kBN = 128;  // output channels per block
-constexpr int kWM = 4, kWN = 2;  // row tiles x column tiles per warp
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKC = 16;  // input channels per staged slice
 constexpr int kPos = kMT * 16 + 2 * kWP + 2;  // window rows + over-read slack
 constexpr int kWLd = kBN + 8;  // padded weight row (elements)
-constexpr int kWinBytes = (kPos * kKC * 2 + 127) / 128 * 128;
+constexpr int kWinLd = kKC + 8;  // padded window row (elements)
+constexpr int kWinBytes = (kPos * kWinLd * 2 + 127) / 128 * 128;
 constexpr int kWtsBytes = 9 * kKC * kWLd * 2;
 constexpr int kStageBytes = kWinBytes + kWtsBytes;
 constexpr int kSmemBytes = 2 * kStageBytes;
@@ -72,7 +70,7 @@ __device__ __forceinline__ void load_slice(unsigned char* stage, const bf16* __r
     const int gy = y0 - 1 + py, gx = x0 - 1 + px;
     const bool in = py < kTH + 2 && gy >= 0 && gy < H && gx >= 0 && gx < W;
     const bf16* src = in ? x + (img + gy * W + gx) * C + c0 + half * 8 : x;
-    cp_async16(win + pos * kKC + half * 8, src, in);
+    cp_async16(win + pos * kWinLd + half * 8, src, in);
   }
   // 9 taps x 16 channels: rows of kBN outputs, kBN / 8 vectors each.
   for (int i = threadIdx.x; i < 9 * kKC * (kBN / 8); i += kThreads) {
@@ -98,16 +96,19 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __r
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wn = warp % (kBN / 16 / kWN);  // 0..3: which pair of column tiles
-  const int m0 = (warp / (kBN / 16 / kWN)) * kWM;  // 0 or 4
-  const int nt0 = wn * kWN;  // first column tile within the block
-  const bool active = n_blk + nt0 * 16 < K;
+  const int wm = (warp / 4) * 64;  // warp's first output row (position)
+  const int wn = (warp % 4) * 32;  // warp's first output channel in the block
+  // Per-lane ldmatrix row addresses: A rows of a 16x16 tile, B k-rows.
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + ((lane / 8) % 2) * 8, b_col = (lane / 16) * 8;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kWM][kWN];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < kWM; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kWN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int slices = C / kKC;
   load_slice(smem, x, w, img, y0, x0, n_blk, 0, H, W, C, K);
@@ -123,45 +124,44 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __r
     __syncthreads();
     const bf16* win = reinterpret_cast<const bf16*>(stage);
     const bf16* wts = reinterpret_cast<const bf16*>(stage + kWinBytes);
-    if (active) {
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * kWP + (tap % 3);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfrag[kWN];
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * kWP + (tap % 3);
+      unsigned a[4][4], b[2][4];
 #pragma unroll
-        for (int j = 0; j < kWN; ++j) {
-          wmma::load_matrix_sync(bfrag[j], wts + tap * kKC * kWLd + (nt0 + j) * 16, kWLd);
-        }
-#pragma unroll
-        for (int i = 0; i < kWM; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
-          wmma::load_matrix_sync(afrag, win + ((m0 + i) * 16 + off) * kKC, kKC);
-#pragma unroll
-          for (int j = 0; j < kWN; ++j) wmma::mma_sync(acc[i][j], afrag, bfrag[j], acc[i][j]);
-        }
+      for (int i = 0; i < 4; ++i) {
+        ldsm_x4(a[i], win + (wm + i * 16 + a_row + off) * kWinLd + a_col);
       }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldsm_x4_trans(b[p], wts + (tap * kKC + b_row) * kWLd + wn + p * 16 + b_col);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
     }
     __syncthreads();  // everyone is done with this stage before it is refilled
   }
-  if (!active) return;
-  float* my_stage = reinterpret_cast<float*>(smem) + warp * 256;
+  // Accumulator (i, j) element e sits at row wm + 16i + lane/4 (+8 for
+  // e >= 2) and channel wn + 8j + 2(lane%4) (+1 for odd e).
 #pragma unroll
-  for (int i = 0; i < kWM; ++i) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < kWN; ++j) {
-      const int n0 = n_blk + (nt0 + j) * 16;
-      if (n0 >= K) continue;
-      wmma::store_matrix_sync(my_stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = (m0 + i) * 16 + e / 16;
-        const int py = r / kWP, px = r % kWP;
-        const int gy = y0 + py, gx = x0 + px;
-        if (px < kTW && gy < H && gx < W) {
-          out[(img + gy * W + gx) * K + n0 + e % 16] = __float2bfloat16(my_stage[e]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + i * 16 + lane / 4 + h * 8;
+      const int py = r / kWP, px = r % kWP;
+      const int gy = y0 + py, gx = x0 + px;
+      if (px >= kTW || gy >= H || gx >= W) continue;
+      bf16* o = out + (img + gy * W + gx) * K;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n_blk + wn + j * 8 + (lane % 4) * 2;
+        if (n < K) {
+          *reinterpret_cast<__nv_bfloat162*>(o + n) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
       }
-      __syncwarp();
     }
   }
 }

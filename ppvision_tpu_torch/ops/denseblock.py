@@ -3,8 +3,9 @@
 ``fused_dense_block`` computes three stages of FrozenBN scale/shift
 (compute dtype) -> ReLU -> SAME 3x3 conv, then ``concat([o1, o2, o3]) +
 x``, on NHWC tensors.  On CUDA it launches ``csrc/denseblock.cu``
-(8x8 output tiles with a recomputed 3-pixel halo, WMMA bf16 convs; it
-replaces the Pallas kernel ``ppvision_tpu/ops/denseblock.py::_kernel``);
+(8x8 output tiles with a recomputed 3-pixel halo, ``mma.sync`` bf16
+convs; it replaces the Pallas kernel
+``ppvision_tpu/ops/denseblock.py::_kernel``);
 on the CPU it runs :func:`dense_block_ref`, the plain op chain that
 ``models/fan.py`` runs unfused.
 """

@@ -3,8 +3,8 @@
 ``conv3x3(x, w)`` takes an NHWC batch and a (3, 3, C, K) HWIO kernel
 and returns the bias-free conv, f32-accumulated and rounded to the
 input dtype once.  On CUDA it launches ``csrc/winograd.cu`` (an
-implicit-GEMM direct conv on WMMA bf16 tiles; it replaces the Winograd
-F(2,3) Pallas kernel ``ppvision_tpu/ops/winograd.py::_kernel``, whose
+implicit-GEMM direct conv on ``mma.sync`` bf16 tiles; it replaces the
+Winograd F(2,3) Pallas kernel ``ppvision_tpu/ops/winograd.py::_kernel``, whose
 1-D form a Mosaic limit forced); on the CPU it runs
 :func:`conv3x3_ref`, the plain ``F.conv2d``.
 """
