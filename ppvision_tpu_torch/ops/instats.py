@@ -20,7 +20,11 @@ the module imports without it.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from . import _build
 
 __all__ = ["instance_moments", "_moments_ref"]
 
@@ -62,6 +66,9 @@ def _moments_kernel(x_ptr, m_ptr, m2_ptr, HW, C, n, BLOCK_HW: tl.constexpr, BLOC
 def _triton_kernel():
     global tl, _KERNEL
     if _KERNEL is None:
+        # Triton's compile cache goes beside the CUDA builds, inside the
+        # checkout, unless the caller chose a place.
+        os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
         import triton
         import triton.language
 
