@@ -11,17 +11,34 @@ What it does, in order; any failure raises and exits non-zero:
 2. builds the CUDA kernels from ``ppvision_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds and what
    ``ptxas -v`` reports;
-3. runs each of the four kernels against its plain PyTorch version on
-   the card at the shapes the de-id path gives it, checks the error
-   against the stated tolerance, and times the kernel, the plain
-   version and one library call that computes the same function;
+3. runs each of the five kernels against its plain PyTorch version on
+   the card at the shapes the de-id path (128x128 and 256x256) and the
+   video path's RAFT give it, checks the error against the stated
+   tolerance, and times the kernel, the plain version and one library
+   call that computes the same function, where there is one;
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
-   R = 10 styles), with every kernel's launch count set to 0 just before
-   and read just after: each kernel must have run;
+   R = 10 styles), with every launch count set to 0 just before and read
+   just after: each of the four de-id kernels must have run;
 5. holds a B=2, R=2 GPU run against the port's own CPU run on the same
    weights and inputs (float32 and bfloat16 compute);
-6. prints de-id images/s of ``deid_multi_style`` timed with CUDA events.
+6. prints de-id images/s of ``deid_multi_style`` timed with CUDA events;
+7. the video path at the reference's full size (``ModelConfig()``:
+   256x256, bf16; full-size RAFT in f32, 4 levels, radius 4, 12
+   iterations, ``alternate_corr=True``), as ``cli/main.py::run_video``
+   drives it, on 16 seeded frames of a smooth image moving 1 px a frame:
+   de-id with one fixed reference style, the style-interpolation video
+   on 8 sources and 2 references, and ``flow_consistency`` over the 30
+   frame pairs in one RAFT call; launch counts set to 0 just before and
+   read just after: all five kernels must have run, the correlation
+   kernel 4 levels x 12 iterations = 48 times;
+8. RAFT on the card: the alternate path against the dense path at the
+   same weights (B=2, 256x256, 3 iterations), and against the port's
+   CPU RAFT (B=1, 128x128, 3 iterations);
+9. times the two RAFT convs it runs as unfold + matmul against cuDNN,
+   and prints RAFT pairs/s (B=30, 256x256, 12 iterations; alternate and
+   dense), the device's idle share of a call and the video phase's
+   seconds.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -44,6 +62,12 @@ F32_FLOP_S = 67e12  # f32 outside the tensor cores
 IMG = 128
 R_STYLES = 10
 SERVE_BATCH = 8
+VIDEO_IMG = 256  # the reference's default: ModelConfig(), CameraConfig(n=256)
+VIDEO_T = 16  # frames; flow_consistency pairs both sequences: 2 x 15 = 30
+RAFT_ITERS = 12
+RAFT_LEVELS = 4  # run_video's rule at 256^2: min(4, log2(256 / 8) + 1)
+RAFT_RADIUS = 4
+OUT_DIR = "chip_smoke_out"  # videos, where the machine has ffmpeg (listed in .gitignore)
 
 
 def card_line() -> str:
@@ -79,12 +103,22 @@ def bound(bytes_moved: float, ops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rfft_conv(img, ore, oim):
+    """One library computation of the same circular conv: rfft2, the
+    half-spectrum product, irfft2."""
+    import torch
+
+    n = img.shape[1]
+    spec = torch.fft.rfft2(img, dim=(1, 2)) * torch.complex(ore, oim)[:, : n // 2 + 1]
+    return torch.fft.irfft2(spec, s=(n, n), dim=(1, 2))
+
+
 def check_fftconv(torch, dev) -> dict:
     from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
     from ppvision_tpu_torch.optics.camera import Camera, CameraSpec, compute_psf, make_camera_constants
 
     worst = 0.0
-    for n, b in ((IMG, SERVE_BATCH), (256, 2)):
+    for n, b in ((IMG, SERVE_BATCH), (VIDEO_IMG, VIDEO_T)):
         spec = CameraSpec(n=n)
         psf = compute_psf(Camera(spec).to(dev), make_camera_constants(spec, dev)).psf
         kern = torch.roll(psf, (-(n // 2), -(n // 2)), (0, 1))
@@ -101,13 +135,12 @@ def check_fftconv(torch, dev) -> dict:
             raise AssertionError(f"fftconv kernel disagrees with torch.fft at n={n}: {err} > {tol}")
         if n == IMG:
             worst, args = err, (img, ore, oim)
+        else:
+            print(f"fftconv n={n} B={b}: {cuda_ms(lambda: fftconv_circular(img, ore, oim)):.4f} ms "
+                  f"(plain {cuda_ms(lambda: fftconv_circular_ref(img, ore, oim)):.4f}, "
+                  f"rfft2 conv {cuda_ms(lambda: rfft_conv(img, ore, oim)):.4f})")
     img, ore, oim = args
     b, n, _, c = img.shape
-    otf_half = torch.complex(ore, oim)[:, : n // 2 + 1]
-
-    def library():
-        spec = torch.fft.rfft2(img, dim=(1, 2)) * otf_half
-        return torch.fft.irfft2(spec, s=(n, n), dim=(1, 2))
 
     nbytes = 4 * (2 * b * n * n * c + 2 * n * n * c)
     ops = b * c * (10 * n * n * math.log2(n * n) + 6 * n * n)
@@ -117,7 +150,7 @@ def check_fftconv(torch, dev) -> dict:
         replaces="ppvision_tpu/ops/fftconv.py:69", max_abs_err=worst,
         ms=cuda_ms(lambda: fftconv_circular(img, ore, oim)),
         plain_ms=cuda_ms(lambda: fftconv_circular_ref(img, ore, oim)),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(library),
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(lambda: rfft_conv(img, ore, oim)),
         shape=[b, n, n, c], tolerance="max_abs_err <= 2e-5 * max(1, max|plain|)",
     )
 
@@ -174,18 +207,25 @@ def check_instats(torch, dev) -> dict:
 
     g = torch.Generator().manual_seed(2)
     worst = 0.0
-    # Encoder/decoder InstanceNorm shapes at 128^2, batch 8.
-    for h, c in ((128, 128), (64, 256), (32, 512), (16, 512), (8, 512)):
-        x = torch.randn((SERVE_BATCH, h, h, c), generator=g).to(dev, torch.bfloat16)
+    # Encoder/decoder InstanceNorm shapes at 128^2, batch 8, then the
+    # 256^2 generator's new ones at the video's batch of 16.
+    shapes = [(SERVE_BATCH, h, c) for h, c in ((128, 128), (64, 256), (32, 512), (16, 512), (8, 512))]
+    shapes += [(VIDEO_T, 256, 64), (VIDEO_T, 128, 128)]
+    for b, h, c in shapes:
+        x = torch.randn((b, h, h, c), generator=g).to(dev, torch.bfloat16)
         m, m2 = instance_moments(x)
         rm, rm2 = _moments_ref(x)
         torch.cuda.synchronize()
         err = max(float((m - rm).abs().max()), float((m2 - rm2).abs().max()))
-        print(f"instats {h}x{h}x{c}: max_abs_err {err:.3e} (tol 1e-5)")
+        print(f"instats B={b} {h}x{h}x{c}: max_abs_err {err:.3e} (tol 1e-5)")
         if not err <= 1e-5:
             raise AssertionError(f"instats kernel disagrees with its plain version: {err}")
-        if (h, c) == (128, 128):
+        if (b, h, c) == (SERVE_BATCH, 128, 128):
             worst, big = err, x
+        elif h == 256:
+            print(f"instats B={b} {h}x{h}x{c}: {cuda_ms(lambda: instance_moments(x)):.4f} ms "
+                  f"(plain {cuda_ms(lambda: _moments_ref(x)):.4f}, "
+                  f"var_mean {cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)):.4f})")
     x = big
     b, h, w, c = x.shape
     nbytes = 2 * x.numel() + 2 * 4 * b * c
@@ -210,6 +250,8 @@ def check_conv3x3(torch, dev) -> dict:
     shapes = [  # (B, H, C, K): generator encode/decode and style encoder
         (8, 64, 128, 256), (8, 32, 256, 512), (8, 16, 512, 512), (8, 8, 512, 512),
         (8, 128, 128, 128), (8, 64, 256, 256), (8, 32, 512, 512), (10, 4, 512, 512),
+        # the 256^2 generator's new shapes, at the video's batch of 16
+        (VIDEO_T, 256, 64, 64), (VIDEO_T, 128, 64, 128), (VIDEO_T, 128, 128, 128),
     ]
     worst = 0.0
     for b, h, c, k in shapes:
@@ -223,8 +265,14 @@ def check_conv3x3(torch, dev) -> dict:
         print(f"conv3x3 B={b} {h}x{h} {c}->{k}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
         if not rel < 2e-2:
             raise AssertionError(f"conv3x3 kernel disagrees with F.conv2d: rel {rel}")
-        if (h, c, k) == (128, 128, 128):
+        if (b, h, c, k) == (8, 128, 128, 128):
             worst, args = err, (x, w)
+        elif h == 256:
+            x_cl = x.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {cuda_ms(lambda: conv3x3(x, w)):.4f} ms "
+                  f"(plain {cuda_ms(lambda: conv3x3_ref(x, w)):.4f}, "
+                  f"F.conv2d {cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)):.4f})")
     x, w = args
     b, h, wd, c = x.shape
     k = w.shape[-1]
@@ -240,6 +288,70 @@ def check_conv3x3(torch, dev) -> dict:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)),
         shape=[b, h, wd, c, k], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
+    )
+
+
+def corr_grid_dots(torch, coords, r: int, h2: int, w2: int) -> int:
+    """Integer-grid dots this run's coords need: the in-map points of
+    each query's (K+1)^2 window (points outside the map cost nothing)."""
+    k1 = 2 * r + 2
+
+    def in_map(c, n):
+        lo = torch.floor(c.clamp(-(r + 1), n + r)) - r
+        return (torch.clamp(lo + k1, 0, n) - torch.clamp(lo, 0, n)).double()
+
+    return int((in_map(coords[..., 0], w2) * in_map(coords[..., 1], h2)).sum())
+
+
+def check_corr(torch, dev) -> dict:
+    """Kernel 5 at RAFT's four level shapes of the video path: B=30 pairs,
+    32x32 queries, C=256, fmap2 32^2 .. 4^2, radius 4."""
+    from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
+
+    rng = np.random.default_rng(4)
+    b, h, c, r = 2 * (VIDEO_T - 1), VIDEO_IMG // 8, 256, RAFT_RADIUS
+    f1 = torch.from_numpy(rng.standard_normal((b, h, h, c), dtype=np.float32)).to(dev)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
+    grid = np.stack([xs, ys], -1).astype(np.float32)
+    worst = 0.0
+    for lvl in range(RAFT_LEVELS):
+        h2 = h >> lvl
+        f2 = torch.from_numpy(rng.standard_normal((b, h2, h2, c), dtype=np.float32)).to(dev)
+        # Level coords as RAFT makes them (coords / 2^l) around a flow of
+        # +-6 px: negative fractions and windows over every border.
+        co = (grid + rng.uniform(-6, 6, (b, h, h, 2)).astype(np.float32)) / 2**lvl
+        co[0, 0, 0], co[0, 0, 1], co[0, 1, 0] = (-0.5, -4.75), (h2 - 1, 0.0), (h2 + 3.5, -5.0)
+        coords = torch.from_numpy(co).to(dev)
+        got = local_corr(f1, f2, coords, r)
+        want = local_corr_ref(f1, f2, coords, r)
+        far = local_corr(f1, f2, coords + 100.0, r)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        far_max = float(far.abs().max())
+        print(f"corr level {lvl} B={b} {h}x{h} -> {h2}x{h2} C={c} r={r}: max_abs_err {err:.3e} "
+              f"(tol {tol:.2e}), coords+100 max {far_max} (must be 0)")
+        if not err <= tol:
+            raise AssertionError(f"corr kernel disagrees with its plain version at level {lvl}: {err} > {tol}")
+        if far_max != 0.0:
+            raise AssertionError(f"corr kernel gives {far_max} for far-out coords, not 0")
+        print(f"corr level {lvl}: {cuda_ms(lambda: local_corr(f1, f2, coords, r)):.4f} ms "
+              f"(plain {cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1):.4f})")
+        if lvl == 0:
+            worst, args = err, (f1, f2, coords)
+    f1, f2, coords = args
+    k = 2 * r + 1
+    nbytes = 4 * (f1.numel() + f2.numel() + coords.numel() + b * h * h * k * k)
+    # 2C per in-map grid dot, and 4 products + 3 sums (+2 weights) per output.
+    ops = 2 * c * corr_grid_dots(torch, coords, r, h, h) + 9 * b * h * h * k * k
+    bms, by = bound(nbytes, ops, F32_FLOP_S)
+    return dict(
+        name="corr", route="cuda", source="ppvision_tpu_torch/csrc/corr.cu",
+        replaces="ppvision_tpu/ops/corr.py:92", max_abs_err=worst,
+        ms=cuda_ms(lambda: local_corr(f1, f2, coords, r)),
+        plain_ms=cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=[b, h, h, c, r], tolerance="max_abs_err <= 1e-5 * max(1, max|plain|); coords+100 exactly 0",
     )
 
 
@@ -259,7 +371,7 @@ def config(dtype: str):
     return FaceDeIdConfig(model=ModelConfig(img_size=IMG, compute_dtype=dtype), camera=CameraConfig(n=IMG))
 
 
-def serve_main_path(torch, kernels) -> dict:
+def serve_main_path(torch, kernels, deid_kernels) -> dict:
     from ppvision_tpu_torch.deid import build_deid
     from ppvision_tpu_torch.serve import DeIdServer
 
@@ -282,9 +394,9 @@ def serve_main_path(torch, kernels) -> dict:
     for o in outs:
         if o.shape != (R_STYLES, IMG, IMG, 3) or not np.isfinite(o).all():
             raise AssertionError(f"bad output: shape {o.shape}, finite {np.isfinite(o).all()}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in deid_kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the de-id path: {missing}")
     return launches
 
 
@@ -343,12 +455,142 @@ def throughput(torch, card: str) -> None:
     print(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
 
 
+def smooth_frames(n_frames: int, size: int, seed: int) -> np.ndarray:
+    """(T, size, size, 3) [0, 1] f32: one seeded smooth image (bicubic
+    upsampling of 16x16 noise), rolled 1 px to the right per frame."""
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.random((1, 3, 16, 16), dtype=np.float32))
+    img = F.interpolate(base, size=(size, size), mode="bicubic", align_corners=False).clamp(0, 1)
+    img = img[0].permute(1, 2, 0).numpy()
+    return np.stack([np.roll(img, t, axis=1) for t in range(n_frames)])
+
+
+def video_path(torch, kernels) -> dict:
+    """``cli/main.py::run_video`` on seeded arrays at 256^2: de-id the
+    sequence with one fixed reference style, render the interpolation
+    video, and score temporal consistency with RAFT on kernel 5."""
+    from ppvision_tpu_torch.config import FaceDeIdConfig
+    from ppvision_tpu_torch.deid import build_deid, deid_from_reference
+    from ppvision_tpu_torch.metrics.temporal import flow_consistency
+    from ppvision_tpu_torch.models.raft import build_raft
+    from ppvision_tpu_torch.sample import get_alphas, video_ref, write_video
+
+    bundle = build_deid(0, FaceDeIdConfig(), device="cuda")
+    raft = build_raft(0, "cuda", corr_levels=RAFT_LEVELS, corr_radius=RAFT_RADIUS, alternate_corr=True)
+    srcs = torch.from_numpy(smooth_frames(VIDEO_T, VIDEO_IMG, 21))
+    refs = torch.from_numpy(np.random.default_rng(22).random((2, VIDEO_IMG, VIDEO_IMG, 3), dtype=np.float32))
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fakes = deid_from_reference(
+        bundle, srcs, refs[:1].expand(VIDEO_T, -1, -1, -1), torch.zeros(VIDEO_T, dtype=torch.long)
+    ).cpu().numpy()
+    wrote = write_video(fakes, os.path.join(OUT_DIR, "video_deid.mp4"))
+    n = min(8, VIDEO_T)
+    video = video_ref(bundle, srcs[:n], refs, torch.zeros(2, dtype=torch.long), os.path.join(OUT_DIR, "video_ref.mp4"))
+    score = flow_consistency(raft, srcs, fakes, iters=RAFT_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"video phase: {secs:.2f} s; flow_consistency_epe {score:.6f}; launches {launches}; "
+          f"write_video wrote a file: {wrote}; interpolation video {video.shape}")
+    if fakes.shape != (VIDEO_T, VIDEO_IMG, VIDEO_IMG, 3) or not np.isfinite(fakes).all():
+        raise AssertionError(f"bad de-id sequence: {fakes.shape}, finite {np.isfinite(fakes).all()}")
+    want = (len(get_alphas()) + 10, 2 * VIDEO_IMG, VIDEO_IMG + 32 + n * VIDEO_IMG, 3)
+    if video.shape != want or not np.isfinite(video).all():
+        raise AssertionError(f"bad interpolation video: {video.shape} (want {want}), finite {np.isfinite(video).all()}")
+    if not math.isfinite(score):
+        raise AssertionError(f"flow_consistency is not finite: {score}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the video path: {missing}")
+    if launches["corr"] != RAFT_LEVELS * RAFT_ITERS:
+        raise AssertionError(f"corr launched {launches['corr']} times, not {RAFT_LEVELS} levels x {RAFT_ITERS} iters")
+    pairs = (torch.cat([srcs[:-1], torch.from_numpy(fakes[:-1])]), torch.cat([srcs[1:], torch.from_numpy(fakes[1:])]))
+    return dict(launches=launches, seconds=secs, score=score, pairs=pairs)
+
+
+def raft_checks(torch, pairs) -> None:
+    """The alternate path against the dense path at the same weights on
+    the card (B=2, 256^2), and the card against the port's CPU RAFT
+    (B=1, 128^2), both at 3 iterations."""
+    from ppvision_tpu_torch.models.raft import build_raft
+
+    f1, f2 = (255.0 * p[:2].cuda() for p in pairs)
+    alt = build_raft(0, "cuda", corr_levels=RAFT_LEVELS, alternate_corr=True)
+    dense = build_raft(0, "cuda", corr_levels=RAFT_LEVELS)
+    dense.load_state_dict(alt.state_dict())
+    a, d = alt(f1, f2, iters=3), dense(f1, f2, iters=3)
+    scale = float(d.abs().max()) + 1e-6
+    err = float((a - d).abs().max())
+    print(f"RAFT alternate vs dense on the card, B=2 256^2 3 iters: max {err:.3e} (|flow| max {scale:.3f})")
+    # The JAX package's own tolerance for this equivalence (tests/test_raft.py).
+    if not torch.allclose(a, d, atol=2e-4 * scale, rtol=1e-4):
+        raise AssertionError(f"alternate RAFT departs from dense RAFT: {err} (scale {scale})")
+
+    small = [torch.nn.functional.avg_pool2d(255.0 * p[:1].permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1) for p in pairs]
+    cpu = build_raft(0, "cpu", corr_levels=RAFT_LEVELS, alternate_corr=True)
+    want = cpu(*small, iters=3)
+    got = alt(*(t.cuda() for t in small), iters=3).cpu()
+    scale = float(want.abs().max()) + 1e-6
+    err = float((got - want).abs().max())
+    print(f"RAFT card vs CPU, B=1 128^2 3 iters: max {err:.3e} (|flow| max {scale:.3f})")
+    # True f32 on both sides (TF32 off); sums in another order through the
+    # encoders and 3 refinement steps: the same scale-relative bound.
+    if not torch.allclose(got, want, atol=2e-4 * scale, rtol=1e-4):
+        raise AssertionError(f"RAFT on the card departs from the CPU: {err} (scale {scale})")
+
+
+def raft_matmul_conv(torch) -> None:
+    """The two motion-encoder convs RAFT runs as unfold + matmul, timed
+    both ways at the video path's shape (B=30, 32x32): cuDNN's f32
+    heuristics send these two output widths down an FFT-tiled route."""
+    import torch.nn.functional as F
+
+    from ppvision_tpu_torch.models.raft import _MatmulConv2d
+
+    b = 2 * (VIDEO_T - 1)
+    for cin, cout in ((256, 192), (256, 126)):
+        conv = _MatmulConv2d(cin, cout, 3, padding=1).cuda()
+        x = torch.randn((b, cin, VIDEO_IMG // 8, VIDEO_IMG // 8), device="cuda")
+        print(f"RAFT conv 3x3 {cin}->{cout} B={b} {VIDEO_IMG // 8}^2: unfold+matmul {cuda_ms(lambda: conv(x)):.4f} ms, "
+              f"cuDNN {cuda_ms(lambda: F.conv2d(x, conv.weight, conv.bias, padding=1)):.4f} ms")
+
+
+def raft_throughput(torch, pairs, card: str, video_secs: float) -> None:
+    """RAFT pairs/s at the video's batch (B=30, 256^2, 12 iterations) on
+    the alternate (kernel 5) and the dense path, and the device's busy
+    share of one profiled call."""
+    from ppvision_tpu_torch.models.raft import build_raft
+
+    f1, f2 = (255.0 * p.cuda() for p in pairs)
+    b = f1.shape[0]
+    for alt in (True, False):
+        raft = build_raft(0, "cuda", corr_levels=RAFT_LEVELS, alternate_corr=alt)
+        ms = cuda_ms(lambda: raft(f1, f2, iters=RAFT_ITERS), iters=3, warmup=1)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            raft(f1, f2, iters=RAFT_ITERS)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        print(json.dumps({
+            "raft_pairs_s": b / (ms / 1e3), "alternate_corr": alt, "B": b, "img": VIDEO_IMG,
+            "iters": RAFT_ITERS, "ms_per_call": ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / ms), "video_phase_s": video_secs, "card": card,
+        }))
+        print(events.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
     import torch
 
-    from ppvision_tpu_torch.ops import KERNELS, _build
+    from ppvision_tpu_torch.ops import DEID_KERNELS, KERNELS, _build
 
     torch.set_grad_enabled(False)
 
@@ -367,16 +609,22 @@ def main(argv=None) -> int:
         print(_build.ptxas_report(name), end="")
 
     records = [check_fftconv(torch, dev), check_denseblock(torch, dev),
-               check_instats(torch, dev), check_conv3x3(torch, dev)]
+               check_instats(torch, dev), check_conv3x3(torch, dev), check_corr(torch, dev)]
     for r in records:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']}, library {r['library_ms']})")
-    launches = serve_main_path(torch, KERNELS)
+    launches = serve_main_path(torch, KERNELS, DEID_KERNELS)
     gpu_vs_cpu(torch)
     throughput(torch, card)
+    video = video_path(torch, KERNELS)
+    raft_checks(torch, video["pairs"])
+    raft_matmul_conv(torch)
+    raft_throughput(torch, video["pairs"], card, video["seconds"])
 
+    # The de-id kernels' launches are those of the served run; the
+    # correlation kernel's, those of the video path (one RAFT call).
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]] if r["name"] in DEID_KERNELS else video["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(card)

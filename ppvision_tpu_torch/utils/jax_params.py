@@ -23,6 +23,7 @@ __all__ = [
     "generator_state_dict",
     "load_deid_params",
     "mapping_state_dict",
+    "raft_state_dict",
     "style_encoder_state_dict",
 ]
 
@@ -160,6 +161,51 @@ def style_encoder_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
     _conv(out, f"shared.{repeat + 2}", trunk["Conv_1"])
     for d in range(_count(tree, "Dense_")):
         _linear(out, f"unshared.{d}", tree[f"Dense_{d}"])
+    return out
+
+
+_RAFT_UPDATE = {
+    "BasicMotionEncoder_0": ("encoder.convc1", "encoder.convc2", "encoder.convf1", "encoder.convf2", "encoder.conv"),
+    "SepConvGRU_0": ("gru.convz1", "gru.convr1", "gru.convq1", "gru.convz2", "gru.convr2", "gru.convq2"),
+    None: ("flow_head.conv1", "flow_head.conv2", "mask.0", "mask.2"),
+}
+
+
+def _raft_encoder(out: dict, prefix: str, tree: Tree) -> None:
+    """BasicEncoder: fnet's instance norms carry no parameters; cnet's
+    frozen BNs (``_Norm_*``) do.  The downsample norm is the reference's
+    ``norm3`` and ``downsample.1`` at once."""
+    _conv(out, f"{prefix}.conv1", tree["Conv_0"])
+    if "_Norm_0" in tree:
+        _bn(out, f"{prefix}.norm1", tree["_Norm_0"])
+    for i in range(6):
+        blk = tree[f"ResidualBlock_{i}"]
+        name = f"{prefix}.layer{i // 2 + 1}.{i % 2}"
+        _conv(out, f"{name}.conv1", blk["Conv_0"])
+        _conv(out, f"{name}.conv2", blk["Conv_1"])
+        for j in (0, 1):
+            if f"_Norm_{j}" in blk:
+                _bn(out, f"{name}.norm{j + 1}", blk[f"_Norm_{j}"])
+        if "Conv_2" in blk:
+            _conv(out, f"{name}.downsample.0", blk["Conv_2"])
+            if "_Norm_2" in blk:
+                _bn(out, f"{name}.downsample.1", blk["_Norm_2"])
+                _bn(out, f"{name}.norm3", blk["_Norm_2"])
+    _conv(out, f"{prefix}.conv2", tree["Conv_1"])
+
+
+def raft_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
+    """``models.raft.RAFT`` params -> the port's ``RAFT`` state_dict (the
+    reference raft-things key names); the inverse of
+    ``torch_import.raft_params_from_torch``."""
+    out: dict[str, torch.Tensor] = {}
+    _raft_encoder(out, "fnet", tree["fnet"])
+    _raft_encoder(out, "cnet", tree["cnet"])
+    upd = tree["update_block"]
+    for sub, names in _RAFT_UPDATE.items():
+        p = upd if sub is None else upd[sub]
+        for i, name in enumerate(names):
+            _conv(out, f"update_block.{name}", p[f"Conv_{i}"])
     return out
 
 

@@ -1,5 +1,6 @@
 """The port's kernels on the card, each against its plain PyTorch
-version, and the de-id path through all four of them.
+version, the de-id path through its four kernels and RAFT through the
+correlation kernel.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports torch, numpy and the port only (no JAX), so it also runs on a
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
 from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
 from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
@@ -92,18 +94,87 @@ def test_conv3x3_kernel_matches_plain(dev, shape):
     assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
 
 
+def _corr_inputs(rng, b, h, h2, c, spread):
+    f1 = _randn(rng, (b, h, h, c))
+    f2 = _randn(rng, (b, h2, h2, c))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
+    grid = np.stack([xs, ys], -1) * (h2 / h)
+    coords = torch.from_numpy((grid + rng.uniform(-spread, spread, (b, h, h, 2))).astype(np.float32))
+    return f1, f2, coords
+
+
+@pytest.mark.parametrize("h2", [32, 16, 8, 4])  # RAFT's four levels at 256^2
+def test_corr_kernel_matches_plain(dev, h2):
+    rng = np.random.default_rng(5)
+    f1, f2, coords = (t.to(dev) for t in _corr_inputs(rng, 4, 32, h2, 256, 6.0))
+    before = local_corr.launches
+    got = local_corr(f1, f2, coords, 4)
+    assert local_corr.launches == before + 1
+    want = local_corr_ref(f1, f2, coords, 4)
+    # f32 dots of 256 terms summed in another order (no TF32 on either side).
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    for far in (coords + 100.0, coords - 100.0):
+        assert torch.equal(local_corr(f1, f2, far, 4), torch.zeros_like(got))
+
+
+def test_corr_backward_on_the_card_matches_cpu(dev):
+    rng = np.random.default_rng(6)
+    cpu = list(_corr_inputs(rng, 2, 8, 8, 64, 3.0))
+    g = _randn(rng, (2, 8, 8, 81))
+    grads = {}
+    for d in ("cpu", dev):
+        ts = [t.clone().to(d).requires_grad_() for t in cpu]
+        local_corr(*ts, 4).backward(g.to(d))
+        grads[str(d)] = [t.grad.cpu() for t in ts]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(a.abs().max()))
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros((1, 8, 8, 24), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         conv3x3(x, torch.zeros((3, 3, 24, 16), dtype=torch.bfloat16, device=dev))
     with pytest.raises(ValueError):
         fused_dense_block(x.float(), *([None] * 3), *([None] * 3))
+    coords = torch.zeros((1, 8, 8, 2), device=dev)
+    with pytest.raises(ValueError):
+        local_corr(x, x, coords)  # bf16
+    with pytest.raises(ValueError):
+        local_corr(x.float()[..., :6], x.float()[..., :6], coords)  # C % 4 != 0
+
+
+def test_raft_matmul_conv_matches_cudnn(dev):
+    from ppvision_tpu_torch.models.raft import _MatmulConv2d
+
+    conv = _MatmulConv2d(256, 192, 3, padding=1).to(dev)
+    x = _randn(np.random.default_rng(8), (3, 256, 10, 12)).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+        err = float((conv(x) - want).abs().max())
+    # True f32 on both sides: sums of 2304 products in another order.
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_raft_alternate_matches_dense_on_the_card(dev):
+    from ppvision_tpu_torch.models.raft import build_raft
+
+    alt = build_raft(0, dev, iters=3, corr_levels=3, alternate_corr=True)
+    dense = build_raft(0, dev, iters=3, corr_levels=3)
+    rng = np.random.default_rng(7)
+    im1 = torch.from_numpy(rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)).to(dev)
+    im2 = torch.roll(im1, 2, dims=2)
+    before = local_corr.launches
+    with torch.no_grad():
+        a, d = alt(im1, im2), dense(im1, im2)
+    assert local_corr.launches == before + 3 * 3  # one launch a level a step
+    scale = float(d.abs().max()) + 1e-6
+    assert torch.allclose(a, d, atol=2e-4 * scale, rtol=1e-4)
 
 
 def test_deid_path_runs_every_kernel_and_matches_cpu(dev):
     from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig
     from ppvision_tpu_torch.deid import build_deid, deid_multi_style
-    from ppvision_tpu_torch.ops import KERNELS
+    from ppvision_tpu_torch.ops import DEID_KERNELS, KERNELS
 
     rng = np.random.default_rng(4)
     xs = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
@@ -121,7 +192,7 @@ def test_deid_path_runs_every_kernel_and_matches_cpu(dev):
                 fn.launches = 0
             out[dtype, d] = deid_multi_style(build_deid(0, cfg, device=d), xs, xr, yr).cpu().numpy()
             if d == "cuda" and dtype == "bfloat16":
-                assert all(fn.launches > 0 for fn in KERNELS.values())
+                assert all(KERNELS[k].launches > 0 for k in DEID_KERNELS)
     ref = out["float32", "cpu"]
     assert np.abs(out["float32", "cuda"] - ref).max() <= 2e-3 * max(1.0, np.abs(ref).max())
     # bf16: no further from the CPU bf16 run than that run is from f32.

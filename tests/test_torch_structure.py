@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from ppvision_tpu.models.raft import RAFT as JaxRAFT
 from ppvision_tpu.utils import torch_import as ti
 from ppvision_tpu_torch.deid import build_deid, deid_multi_style
+from ppvision_tpu_torch.models.raft import build_raft
 from ppvision_tpu_torch.serve import DeIdServer
 from ppvision_tpu_torch.utils import jax_params
 
@@ -80,11 +82,28 @@ def test_weights_round_trip_through_reference_names(jb):
     np.testing.assert_array_equal(cam.zernike_frozen, p.camera.zernike_frozen)
 
 
+def test_raft_weights_round_trip_through_reference_names():
+    """JAX RAFT tree -> raft_state_dict -> port RAFT -> state_dict() ->
+    torch_import.raft_params_from_torch gives back the same tree, bit for
+    bit (fnet's instance norms carry no parameters, cnet's frozen BNs do)."""
+    x = jax.numpy.zeros((1, 64, 64, 3))
+    tree = numpy_tree(jax.jit(lambda k: JaxRAFT(corr_levels=3).init(k, x, x, iters=1))(jax.random.key(1))["params"])
+    port = build_raft(device="cpu", corr_levels=3)
+    port.load_state_dict(jax_params.raft_state_dict(tree), strict=True)
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    assert "fnet.layer2.0.downsample.0.weight" in sd and "fnet.layer2.0.norm1.weight" not in sd
+    assert "cnet.layer2.0.downsample.1.running_var" in sd and "cnet.layer2.0.norm3.running_var" in sd
+    assert "update_block.gru.convq2.weight" in sd and "update_block.mask.2.bias" in sd
+    _assert_same_tree(ti.raft_params_from_torch(sd), tree)
+
+
 def test_entry_points_refuse_a_missing_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_deid(0, torch_cfg())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_raft()
 
 
 @pytest.fixture(scope="module")
