@@ -15,7 +15,8 @@ What it does, in order; any failure raises and exits non-zero:
    the card at the shapes the de-id path (128x128 and 256x256) and the
    video path's RAFT give it, checks the error against the stated
    tolerance, and times the kernel, the plain version and one library
-   call that computes the same function, where there is one;
+   call that computes the same function, where there is one, beside the
+   kernel's bound; fftconv gets one record at each path's shape;
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
    R = 10 styles), with every launch count set to 0 just before and read
@@ -113,12 +114,14 @@ def rfft_conv(img, ore, oim):
     return torch.fft.irfft2(spec, s=(n, n), dim=(1, 2))
 
 
-def check_fftconv(torch, dev) -> dict:
+def check_fftconv(torch, dev) -> list[dict]:
+    """Kernel 1 at both paths' shapes: the de-id camera (B=8, 128^2) and
+    the video camera (B=16, 256^2); one record each."""
     from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
     from ppvision_tpu_torch.optics.camera import Camera, CameraSpec, compute_psf, make_camera_constants
 
-    worst = 0.0
-    for n, b in ((IMG, SERVE_BATCH), (VIDEO_IMG, VIDEO_T)):
+    records = []
+    for n, b, path in ((IMG, SERVE_BATCH, "deid"), (VIDEO_IMG, VIDEO_T, "video")):
         spec = CameraSpec(n=n)
         psf = compute_psf(Camera(spec).to(dev), make_camera_constants(spec, dev)).psf
         kern = torch.roll(psf, (-(n // 2), -(n // 2)), (0, 1))
@@ -133,26 +136,19 @@ def check_fftconv(torch, dev) -> dict:
         print(f"fftconv n={n} B={b}: max_abs_err {err:.3e} (tol {tol:.1e})")
         if not err <= tol:
             raise AssertionError(f"fftconv kernel disagrees with torch.fft at n={n}: {err} > {tol}")
-        if n == IMG:
-            worst, args = err, (img, ore, oim)
-        else:
-            print(f"fftconv n={n} B={b}: {cuda_ms(lambda: fftconv_circular(img, ore, oim)):.4f} ms "
-                  f"(plain {cuda_ms(lambda: fftconv_circular_ref(img, ore, oim)):.4f}, "
-                  f"rfft2 conv {cuda_ms(lambda: rfft_conv(img, ore, oim)):.4f})")
-    img, ore, oim = args
-    b, n, _, c = img.shape
-
-    nbytes = 4 * (2 * b * n * n * c + 2 * n * n * c)
-    ops = b * c * (10 * n * n * math.log2(n * n) + 6 * n * n)
-    bms, by = bound(nbytes, ops, F32_FLOP_S)
-    return dict(
-        name="fftconv", route="cuda", source="ppvision_tpu_torch/csrc/fftconv.cu",
-        replaces="ppvision_tpu/ops/fftconv.py:69", max_abs_err=worst,
-        ms=cuda_ms(lambda: fftconv_circular(img, ore, oim)),
-        plain_ms=cuda_ms(lambda: fftconv_circular_ref(img, ore, oim)),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(lambda: rfft_conv(img, ore, oim)),
-        shape=[b, n, n, c], tolerance="max_abs_err <= 2e-5 * max(1, max|plain|)",
-    )
+        c = img.shape[-1]
+        nbytes = 4 * (2 * b * n * n * c + 2 * n * n * c)
+        ops = b * c * (10 * n * n * math.log2(n * n) + 6 * n * n)
+        bms, by = bound(nbytes, ops, F32_FLOP_S)
+        records.append(dict(
+            name="fftconv", route="cuda", source="ppvision_tpu_torch/csrc/fftconv.cu",
+            replaces="ppvision_tpu/ops/fftconv.py:69", max_abs_err=err, path=path,
+            ms=cuda_ms(lambda: fftconv_circular(img, ore, oim)),
+            plain_ms=cuda_ms(lambda: fftconv_circular_ref(img, ore, oim)),
+            bound_ms=bms, bound_by=by, library_ms=cuda_ms(lambda: rfft_conv(img, ore, oim)),
+            shape=[b, n, n, c], tolerance="max_abs_err <= 2e-5 * max(1, max|plain|)",
+        ))
+    return records
 
 
 def check_denseblock(torch, dev) -> dict:
@@ -194,12 +190,17 @@ def check_denseblock(torch, dev) -> dict:
     bms, by = bound(nbytes, 2 * macs, BF16_FLOP_S)
     return dict(
         name="denseblock", route="cuda", source="ppvision_tpu_torch/csrc/denseblock.cu",
-        replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=worst,
+        replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=worst, path="deid",
         ms=cuda_ms(lambda: fused_dense_block(x, *ks, *bns)),
         plain_ms=cuda_ms(lambda: dense_block_ref(x, *ks, *bns)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=[b, h, w, f], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
     )
+
+
+def instats_bound(x) -> tuple[float, str]:
+    b, h, w, c = x.shape
+    return bound(2 * x.numel() + 2 * 4 * b * c, 3 * x.numel(), F32_FLOP_S)
 
 
 def check_instats(torch, dev) -> dict:
@@ -225,20 +226,26 @@ def check_instats(torch, dev) -> dict:
         elif h == 256:
             print(f"instats B={b} {h}x{h}x{c}: {cuda_ms(lambda: instance_moments(x)):.4f} ms "
                   f"(plain {cuda_ms(lambda: _moments_ref(x)):.4f}, "
-                  f"var_mean {cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)):.4f})")
+                  f"var_mean {cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)):.4f}, "
+                  "bound {:.4f} by {})".format(*instats_bound(x)))
     x = big
     b, h, w, c = x.shape
-    nbytes = 2 * x.numel() + 2 * 4 * b * c
-    bms, by = bound(nbytes, 3 * x.numel(), F32_FLOP_S)
+    bms, by = instats_bound(x)
     return dict(
         name="instats", route="triton", source="ppvision_tpu_torch/ops/instats.py",
-        replaces="ppvision_tpu/ops/instats.py:66", max_abs_err=worst,
+        replaces="ppvision_tpu/ops/instats.py:66", max_abs_err=worst, path="deid",
         ms=cuda_ms(lambda: instance_moments(x)),
         plain_ms=cuda_ms(lambda: _moments_ref(x)),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
         shape=[b, h, w, c], tolerance="max_abs_err <= 1e-5 on both moments",
     )
+
+
+def conv3x3_bound(x, w) -> tuple[float, str]:
+    b, h, wd, c = x.shape
+    k = w.shape[-1]
+    return bound(2 * (2 * x.numel() + w.numel()), 2 * 9 * b * h * wd * c * k, BF16_FLOP_S)
 
 
 def check_conv3x3(torch, dev) -> dict:
@@ -272,17 +279,16 @@ def check_conv3x3(torch, dev) -> dict:
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {cuda_ms(lambda: conv3x3(x, w)):.4f} ms "
                   f"(plain {cuda_ms(lambda: conv3x3_ref(x, w)):.4f}, "
-                  f"F.conv2d {cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)):.4f})")
+                  f"F.conv2d {cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)):.4f}, "
+                  "bound {:.4f} by {})".format(*conv3x3_bound(x, w)))
     x, w = args
     b, h, wd, c = x.shape
-    k = w.shape[-1]
     x_cl = x.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    nbytes = 2 * (2 * x.numel() + w.numel())
-    bms, by = bound(nbytes, 2 * 9 * b * h * wd * c * k, BF16_FLOP_S)
+    bms, by = conv3x3_bound(x, w)
     return dict(
         name="conv3x3", route="cuda", source="ppvision_tpu_torch/csrc/winograd.cu",
-        replaces="ppvision_tpu/ops/winograd.py:99", max_abs_err=worst,
+        replaces="ppvision_tpu/ops/winograd.py:99", max_abs_err=worst, path="deid",
         ms=cuda_ms(lambda: conv3x3(x, w)),
         plain_ms=cuda_ms(lambda: conv3x3_ref(x, w)),
         bound_ms=bms, bound_by=by,
@@ -347,7 +353,7 @@ def check_corr(torch, dev) -> dict:
     bms, by = bound(nbytes, ops, F32_FLOP_S)
     return dict(
         name="corr", route="cuda", source="ppvision_tpu_torch/csrc/corr.cu",
-        replaces="ppvision_tpu/ops/corr.py:92", max_abs_err=worst,
+        replaces="ppvision_tpu/ops/corr.py:92", max_abs_err=worst, path="video",
         ms=cuda_ms(lambda: local_corr(f1, f2, coords, r)),
         plain_ms=cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -608,11 +614,11 @@ def main(argv=None) -> int:
     for name in _build.CUDA_SOURCES:
         print(_build.ptxas_report(name), end="")
 
-    records = [check_fftconv(torch, dev), check_denseblock(torch, dev),
+    records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
                check_instats(torch, dev), check_conv3x3(torch, dev), check_corr(torch, dev)]
     for r in records:
-        print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
-              f"by {r['bound_by']}, library {r['library_ms']})")
+        print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
     launches = serve_main_path(torch, KERNELS, DEID_KERNELS)
     gpu_vs_cpu(torch)
     throughput(torch, card)
@@ -621,12 +627,12 @@ def main(argv=None) -> int:
     raft_matmul_conv(torch)
     raft_throughput(torch, video["pairs"], card, video["seconds"])
 
-    # The de-id kernels' launches are those of the served run; the
-    # correlation kernel's, those of the video path (one RAFT call).
+    # A record at a de-id shape takes its launches from the served run; at
+    # a video shape (fftconv at 256^2, corr), from the video path.
     for r in records:
-        r["launches"] = launches[r["name"]] if r["name"] in DEID_KERNELS else video["launches"][r["name"]]
+        r["launches"] = (launches if r["path"] == "deid" else video["launches"])[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "shape")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {

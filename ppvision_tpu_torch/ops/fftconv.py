@@ -2,11 +2,13 @@
 
 ``fftconv_circular(img, otf_re, otf_im)`` computes
 ``real(IFFT2(FFT2(img) * OTF))`` over the (H, W) axes of an NHWC f32
-batch.  On a CUDA tensor it launches ``csrc/fftconv.cu`` (one block per
-image plane, radix-2 FFTs in shared memory; it replaces the Pallas
+batch.  On a CUDA tensor it runs ``csrc/fftconv.cu`` (radix-2 FFTs in
+shared memory in three CUDA launches: forward rows, columns with the OTF
+product and the inverse columns, inverse rows; it replaces the Pallas
 kernel ``ppvision_tpu/ops/fftconv.py::_fftconv_kernel``); on a CPU
 tensor it runs the plain ``torch.fft`` version, which is also the
-kernel's oracle on the card.
+kernel's oracle on the card.  ``fftconv_circular.launches`` counts
+calls: one per call, whatever the number of CUDA launches in it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ __all__ = ["fftconv_circular", "fftconv_circular_ref", "fftconv_supported"]
 
 _SIGS = {
     "fftconv_circular": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "fftconv_uses_scratch": [ctypes.c_int],
 }
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}
 
@@ -44,11 +45,16 @@ def fftconv_supported(img_shape, otf_shape) -> bool:
 
 
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(-2 pi i k / n), k < n/2, built in f64 and rounded to f32."""
+    """exp(-2 pi i k / n), k < n/2, built in f64 and rounded to f32, laid
+    out per radix-2 stage: entry s + j is the twiddle of butterfly j of
+    the stage of span s, exp(-2 pi i j / (2 s)) = entry j n / (2 s) of the
+    table (entry 0 is unused)."""
     key = (n, str(device))
     tw = _TWIDDLES.get(key)
     if tw is None:
         z = np.exp(-2j * np.pi * np.arange(n // 2, dtype=np.float64) / n)
+        spans = [1 << k for k in range(n.bit_length() - 1)]
+        z = np.concatenate([[1.0], *(z[np.arange(s) * (n // (2 * s))] for s in spans)])
         tw = torch.from_numpy(np.stack([z.real, z.imag], -1).astype(np.float32)).to(device)
         _TWIDDLES[key] = tw
     return tw
@@ -74,14 +80,13 @@ def fftconv_circular(img: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Tens
     b, n, _, c = img.shape
     lib = _build.load("fftconv", _SIGS)
     out = torch.empty_like(img)
-    scratch = None
-    if lib.fftconv_uses_scratch(n):
-        scratch = torch.empty((b * c, n, n, 2), dtype=torch.float32, device=img.device)
+    # The B C planes of the spectrum, then C planes of the permuted OTF.
+    spec = torch.empty((b * c + c, n, n, 2), dtype=torch.float32, device=img.device)
     tw = _twiddles(n, img.device)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = lib.fftconv_circular(
         img.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(), tw.data_ptr(), out.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), b, n, c, stream,
+        spec.data_ptr(), b, n, c, stream,
     )
     _build.check(lib, err, "fftconv_circular")
     fftconv_circular.launches += 1

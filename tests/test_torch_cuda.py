@@ -36,11 +36,19 @@ def _randn(rng, shape, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
-@pytest.mark.parametrize("n,b", [(128, 8), (256, 2)])
-def test_fftconv_kernel_matches_plain(dev, n, b):
+# Every n the three passes treat apart (n = 4: one row block and one
+# stage pair; n < Q = 16 columns; the paths' 128 and 256; Q bounded by
+# the 64 KB column tile from 512; Q = 8 and channel groups at 1024), one
+# to many channels, odd batches, and the video path's (16, 256, 256, 3).
+@pytest.mark.parametrize(
+    "b,n,c",
+    [(2, 4, 3), (3, 8, 1), (1, 8, 4), (5, 64, 3), (8, 128, 3), (3, 128, 1), (2, 256, 4),
+     (16, 256, 3), (1, 256, 13), (1, 512, 3), (1, 1024, 3), (1, 1024, 4)],
+)
+def test_fftconv_kernel_matches_plain(dev, b, n, c):
     rng = np.random.default_rng(0)
-    img = _randn(rng, (b, n, n, 3)).to(dev)
-    otf = torch.fft.fft2(_randn(rng, (n, n, 3)).to(dev), dim=(0, 1))
+    img = _randn(rng, (b, n, n, c)).to(dev)
+    otf = torch.fft.fft2(_randn(rng, (n, n, c)).to(dev), dim=(0, 1))
     args = (img, otf.real.contiguous(), otf.imag.contiguous())
     before = fftconv_circular.launches
     got = fftconv_circular(*args)

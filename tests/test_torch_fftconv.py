@@ -32,6 +32,16 @@ def test_fftconv_matches_jax_circular_conv(b, h, w, c):
     np.testing.assert_allclose(via_fourier, want, rtol=2e-5, atol=2e-5)
 
 
+def test_fftconv_matches_jax_circular_conv_at_the_video_path_size():
+    # The camera's n = 256 at B = 2: sums of 65,536 terms, so the bound is
+    # scaled to the output.
+    img, ker = _data(3, 2, 256, 256, 3)
+    want = np.asarray(jf.fft_conv2d_circular(jnp.asarray(img), jnp.asarray(ker)))
+    otf = torch.fft.fft2(torch.from_numpy(ker), dim=(0, 1))
+    got = fftconv_circular(torch.from_numpy(img), otf.real, otf.imag).numpy()
+    assert np.abs(got - want).max() <= 2e-5 * max(1.0, np.abs(want).max())
+
+
 def test_fftconv_cpu_tensors_take_the_plain_version():
     img, ker = _data(1, 2, 8, 8, 3)
     otf = torch.fft.fft2(torch.from_numpy(ker), dim=(0, 1))
