@@ -248,53 +248,64 @@ def conv3x3_bound(x, w) -> tuple[float, str]:
     return bound(2 * (2 * x.numel() + w.numel()), 2 * 9 * b * h * wd * c * k, BF16_FLOP_S)
 
 
-def check_conv3x3(torch, dev) -> dict:
+# (B, H, C, K) of every conv3x3 the two paths launch, with its launches
+# per served de-id step at 128^2 (B = 8 sources, R = 10 styles): decode
+# runs 8 a style (128^2, 64^2, 32^2, 16^2, 4 x 8^2), encode 8 (64^2,
+# 32^2, 16^2, 5 x 8^2), the style encoder 5 at batch R = 10 (64^2 .. 4^2;
+# the first four counted at the B = 8 shape of the same H, C, K).  The
+# 256^2 generator's new shapes run at the video's batch of 16 and are
+# not in the served step.
+CONV3X3_SHAPES = {
+    (8, 64, 128, 256): 2, (8, 32, 256, 512): 2, (8, 16, 512, 512): 12, (8, 8, 512, 512): 46,
+    (8, 128, 128, 128): 10, (8, 64, 256, 256): 10, (8, 32, 512, 512): 10, (10, 4, 512, 512): 1,
+    (VIDEO_T, 256, 64, 64): 0, (VIDEO_T, 128, 64, 128): 0, (VIDEO_T, 128, 128, 128): 0,
+}
+CONV3X3_PER_STEP = sum(CONV3X3_SHAPES.values())  # 93
+
+
+def check_conv3x3(torch, dev) -> list[dict]:
+    """Kernel 4 at all eleven path shapes: error against the plain
+    version, the kernel's time beside ``F.conv2d`` (channels_last) and
+    the bound, one line each, and the sum over a served step's 93
+    launches.  One record at each path's largest shape."""
     import torch.nn.functional as F
 
-    from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref
+    from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
 
     g = torch.Generator().manual_seed(3)
-    shapes = [  # (B, H, C, K): generator encode/decode and style encoder
-        (8, 64, 128, 256), (8, 32, 256, 512), (8, 16, 512, 512), (8, 8, 512, 512),
-        (8, 128, 128, 128), (8, 64, 256, 256), (8, 32, 512, 512), (10, 4, 512, 512),
-        # the 256^2 generator's new shapes, at the video's batch of 16
-        (VIDEO_T, 256, 64, 64), (VIDEO_T, 128, 64, 128), (VIDEO_T, 128, 128, 128),
-    ]
-    worst = 0.0
-    for b, h, c, k in shapes:
+    records, step_ms, step_lib_ms = [], 0.0, 0.0
+    for (b, h, c, k), per_step in CONV3X3_SHAPES.items():
         x = torch.randn((b, h, h, c), generator=g).to(dev, torch.bfloat16)
         w = (torch.randn((3, 3, c, k), generator=g) / math.sqrt(9 * c)).to(dev, torch.bfloat16)
-        got = conv3x3(x, w).float()
+        wp = pack_conv3x3_weight(w)  # packed once, as the conv modules cache it
+        got = conv3x3(x, wp).float()
         want = conv3x3_ref(x, w).float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / (float(want.abs().max()) + 1e-8)
-        print(f"conv3x3 B={b} {h}x{h} {c}->{k}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
         if not rel < 2e-2:
-            raise AssertionError(f"conv3x3 kernel disagrees with F.conv2d: rel {rel}")
-        if (b, h, c, k) == (8, 128, 128, 128):
-            worst, args = err, (x, w)
-        elif h == 256:
-            x_cl = x.permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {cuda_ms(lambda: conv3x3(x, w)):.4f} ms "
-                  f"(plain {cuda_ms(lambda: conv3x3_ref(x, w)):.4f}, "
-                  f"F.conv2d {cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)):.4f}, "
-                  "bound {:.4f} by {})".format(*conv3x3_bound(x, w)))
-    x, w = args
-    b, h, wd, c = x.shape
-    x_cl = x.permute(0, 3, 1, 2)
-    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    bms, by = conv3x3_bound(x, w)
-    return dict(
-        name="conv3x3", route="cuda", source="ppvision_tpu_torch/csrc/winograd.cu",
-        replaces="ppvision_tpu/ops/winograd.py:99", max_abs_err=worst, path="deid",
-        ms=cuda_ms(lambda: conv3x3(x, w)),
-        plain_ms=cuda_ms(lambda: conv3x3_ref(x, w)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1)),
-        shape=[b, h, wd, c, k], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
-    )
+            raise AssertionError(f"conv3x3 kernel disagrees with F.conv2d at {(b, h, c, k)}: rel {rel}")
+        x_cl = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: conv3x3(x, wp))
+        lib_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
+        bms, by = conv3x3_bound(x, w)
+        step_ms += per_step * ms
+        step_lib_ms += per_step * lib_ms
+        print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {ms:.4f} ms (F.conv2d {lib_ms:.4f}, bound {bms:.4f} "
+              f"by {by}; {per_step} a served step); max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
+        path = {(8, 128, 128, 128): "deid", (VIDEO_T, 256, 64, 64): "video"}.get((b, h, c, k))
+        if path is not None:
+            records.append(dict(
+                name="conv3x3", route="cuda", source="ppvision_tpu_torch/csrc/winograd.cu",
+                replaces="ppvision_tpu/ops/winograd.py:99", max_abs_err=err, path=path,
+                ms=ms, plain_ms=cuda_ms(lambda: conv3x3_ref(x, w)),
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                shape=[b, h, h, c, k], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
+            ))
+    print(f"conv3x3 over a served step's {CONV3X3_PER_STEP} launches: kernel {step_ms:.4f} ms, "
+          f"F.conv2d {step_lib_ms:.4f} ms")
+    return records
 
 
 def corr_grid_dots(torch, coords, r: int, h2: int, w2: int) -> int:
@@ -403,6 +414,10 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     missing = [k for k in deid_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the de-id path: {missing}")
+    steps = -(-len(requests) // SERVE_BATCH)
+    if launches["conv3x3"] != steps * CONV3X3_PER_STEP:
+        raise AssertionError(f"conv3x3 launched {launches['conv3x3']} times over {steps} served steps, "
+                             f"not {CONV3X3_PER_STEP} a step")
     return launches
 
 
@@ -615,7 +630,7 @@ def main(argv=None) -> int:
         print(_build.ptxas_report(name), end="")
 
     records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
-               check_instats(torch, dev), check_conv3x3(torch, dev), check_corr(torch, dev)]
+               check_instats(torch, dev), *check_conv3x3(torch, dev), check_corr(torch, dev)]
     for r in records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")

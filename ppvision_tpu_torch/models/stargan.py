@@ -31,7 +31,7 @@ from torch import nn
 from ..ops.fusedconv import conv3x3_avgpool2x, conv3x3_nearest_up2x
 from ..ops.image import avg_pool_2x, resize_bilinear, upsample_nearest_2x
 from ..ops.instats import instance_moments
-from ..ops.winograd import conv3x3, conv3x3_supported
+from ..ops.winograd import conv3x3, conv3x3_supported, pack_conv3x3_weight
 
 __all__ = [
     "Conv",
@@ -83,20 +83,30 @@ class Conv(nn.Conv2d):
     package's ``Conv``: the conv output is rounded to the compute dtype,
     then the bias is added in it.  Stride-1 SAME 3x3 convs on CUDA bf16
     with channels % 16 = 0 run kernel 4; the kernel's (3, 3, C, K) bf16
-    weight copy is made once per weight version."""
+    weight copy and its packed image (``pack_conv3x3_weight``) are made
+    once per weight version."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0, bias=True, dtype=None):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
         self._hwio_key = None
         self._hwio = None
+        self._packed = None
 
     def hwio_weight(self, dtype) -> torch.Tensor:
         key = (self.weight._version, self.weight.data_ptr(), dtype)
         if key != self._hwio_key:
             self._hwio = self.weight.detach().permute(2, 3, 1, 0).to(dtype).contiguous()
+            self._packed = None
             self._hwio_key = key
         return self._hwio
+
+    def packed_weight(self, dtype) -> torch.Tensor:
+        """The kernel's weight: the HWIO copy packed, cached beside it."""
+        hwio = self.hwio_weight(dtype)
+        if self._packed is None:
+            self._packed = pack_conv3x3_weight(hwio)
+        return self._packed
 
     def _kernel_eligible(self, x: torch.Tensor) -> bool:
         return (
@@ -111,7 +121,7 @@ class Conv(nn.Conv2d):
         dt = self.compute_dtype or x.dtype
         x = x.to(dt)
         if self._kernel_eligible(x):
-            y = conv3x3(x.permute(0, 2, 3, 1), self.hwio_weight(dt)).permute(0, 3, 1, 2)
+            y = conv3x3(x.permute(0, 2, 3, 1), self.packed_weight(dt)).permute(0, 3, 1, 2)
         else:
             y = F.conv2d(x, self.weight.to(dt), None, self.stride, self.padding)
         if self.bias is not None:

@@ -19,7 +19,7 @@ from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
 from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
 from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
-from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref
+from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
 
 pytestmark = pytest.mark.cuda
 
@@ -87,8 +87,14 @@ def test_moments_kernel_matches_plain(dev, shape):
     assert float((m2 - rm2).abs().max()) <= 1e-5
 
 
+# The paths' shapes, among them those whose tiles span images (8^2, 4^2)
+# and K = 64 (a 64-wide output-channel tile); K = 16 and 80 (a masked
+# last tile); a ragged edge; a tile of three 4^2 images.
 @pytest.mark.parametrize(
-    "shape", [(8, 128, 128, 128, 128), (8, 64, 64, 128, 256), (10, 4, 4, 512, 512), (2, 5, 7, 48, 32)]
+    "shape",
+    [(8, 128, 128, 128, 128), (8, 64, 64, 128, 256), (10, 4, 4, 512, 512), (2, 5, 7, 48, 32),
+     (16, 256, 256, 64, 64), (16, 128, 128, 64, 128), (8, 16, 16, 512, 512), (8, 8, 8, 512, 512),
+     (8, 32, 32, 512, 512), (2, 8, 8, 32, 16), (2, 9, 12, 64, 80), (3, 4, 4, 64, 64)],
 )
 def test_conv3x3_kernel_matches_plain(dev, shape):
     b, h, w, c, k = shape
@@ -100,6 +106,13 @@ def test_conv3x3_kernel_matches_plain(dev, shape):
     assert conv3x3.launches == before + 1
     want = conv3x3_ref(x, ker).float()
     assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
+
+
+def test_conv3x3_packed_weight_is_bit_identical(dev):
+    rng = np.random.default_rng(9)
+    x = _randn(rng, (2, 16, 16, 128)).to(dev, torch.bfloat16)
+    ker = _randn(rng, (3, 3, 128, 256), 1 / math.sqrt(9 * 128)).to(dev, torch.bfloat16)
+    assert torch.equal(conv3x3(x, pack_conv3x3_weight(ker)), conv3x3(x, ker))
 
 
 def _corr_inputs(rng, b, h, h2, c, spread):
