@@ -17,10 +17,17 @@ What it does, in order; any failure raises and exits non-zero:
    tolerance, and times the kernel, the plain version and one library
    call that computes the same function, where there is one, beside the
    kernel's bound; fftconv gets one record at each path's shape;
+   conv3x3 and instats are checked and timed at every shape either path
+   gives them, with instats' device microseconds and host microseconds
+   a call, and the sums over a served step's 93 and 145 launches; two
+   instats calls must agree bit for bit;
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
    R = 10 styles), with every launch count set to 0 just before and read
-   just after: each of the four de-id kernels must have run;
+   just after: each of the four de-id kernels must have run, conv3x3
+   exactly 93 and instats exactly 145 times a step, each instats shape
+   as often as ``INSTATS_SHAPES`` says; prints how many instats inputs
+   had to be copied to be contiguous;
 5. holds a B=2, R=2 GPU run against the port's own CPU run on the same
    weights and inputs (float32 and bfloat16 compute);
 6. prints de-id images/s of ``deid_multi_style`` timed with CUDA events;
@@ -32,7 +39,10 @@ What it does, in order; any failure raises and exits non-zero:
    on 8 sources and 2 references, and ``flow_consistency`` over the 30
    frame pairs in one RAFT call; launch counts set to 0 just before and
    read just after: all five kernels must have run, the correlation
-   kernel 4 levels x 12 iterations = 48 times;
+   kernel 4 levels x 12 iterations = 48 times; every instats shape of
+   both paths must be one that step 3 checked; instats input copies;
+   then the same phase again under ``torch.profiler``: its device busy
+   milliseconds and instats' share of them;
 8. RAFT on the card: the alternate path against the dense path at the
    same weights (B=2, 256x256, 3 iterations), and against the port's
    CPU RAFT (B=1, 128x128, 3 iterations);
@@ -198,48 +208,113 @@ def check_denseblock(torch, dev) -> dict:
     )
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls that are
+    not synchronised (the queue drains after the clock stops)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device microseconds of the kernels named ``kernel`` over
+    ``calls`` calls of ``fn``, from ``torch.profiler``; NaN where the
+    profiler saw no such kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    return sum(e.self_device_time_total for e in events) / calls if events else math.nan
+
+
 def instats_bound(x) -> tuple[float, str]:
     b, h, w, c = x.shape
-    return bound(2 * x.numel() + 2 * 4 * b * c, 3 * x.numel(), F32_FLOP_S)
+    return bound(x.element_size() * x.numel() + 2 * 4 * b * c, 3 * x.numel(), F32_FLOP_S)
 
 
-def check_instats(torch, dev) -> dict:
+# (B, H, C) of every InstanceNorm/AdaIN moment the two paths take, bf16,
+# with its launches per served de-id step at 128^2 (B = 8 sources, R =
+# 10 styles: encode once, decode once a style).  The 256^2 generator
+# runs in the video phase: de-id at the video's batch of 16, and the
+# style-interpolation video, which encodes its 8 sources and decodes
+# them under 31 styles at once (B = 248); none of that is in the served
+# step.  The served run and the video phase check that they take no
+# other shape.
+INTERP_B = 8 * 31
+INSTATS_SHAPES = {
+    (8, 128, 128): 22, (8, 64, 128): 1, (8, 64, 256): 22, (8, 32, 256): 1, (8, 32, 512): 22,
+    (8, 16, 512): 22, (8, 8, 512): 55,
+    (VIDEO_T, 256, 64): 0, (VIDEO_T, 128, 64): 0, (VIDEO_T, 128, 128): 0, (VIDEO_T, 64, 128): 0,
+    (VIDEO_T, 64, 256): 0, (VIDEO_T, 32, 256): 0, (VIDEO_T, 32, 512): 0, (VIDEO_T, 16, 512): 0,
+    (VIDEO_T, 8, 512): 0,
+    (8, 256, 64): 0, (8, 128, 64): 0,
+    (INTERP_B, 256, 64): 0, (INTERP_B, 128, 128): 0, (INTERP_B, 64, 256): 0, (INTERP_B, 32, 512): 0,
+    (INTERP_B, 16, 512): 0, (INTERP_B, 8, 512): 0,
+}
+INSTATS_PER_STEP = sum(INSTATS_SHAPES.values())  # 145
+
+
+def check_instats(torch, dev) -> list[dict]:
+    """Kernel 3 at every shape of ``INSTATS_SHAPES``: error against the
+    plain version, the kernel's time in a 20-call window and on the
+    device beside ``torch.var_mean`` and the bound, the host
+    microseconds a call, one line each, and the sums over a served
+    step's 145 launches.  Two calls at the video shape must agree bit
+    for bit.  One record at each path's largest shape of the de-id and
+    the video batch."""
     from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
 
-    g = torch.Generator().manual_seed(2)
-    worst = 0.0
-    # Encoder/decoder InstanceNorm shapes at 128^2, batch 8, then the
-    # 256^2 generator's new ones at the video's batch of 16.
-    shapes = [(SERVE_BATCH, h, c) for h, c in ((128, 128), (64, 256), (32, 512), (16, 512), (8, 512))]
-    shapes += [(VIDEO_T, 256, 64), (VIDEO_T, 128, 128)]
-    for b, h, c in shapes:
-        x = torch.randn((b, h, h, c), generator=g).to(dev, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(2)
+    records, step = [], {"ms": 0.0, "device_ms": 0.0, "var_mean_ms": 0.0}
+    for (b, h, c), per_step in INSTATS_SHAPES.items():
+        x = torch.randn((b, h, h, c), generator=g, device=dev, dtype=torch.bfloat16)
         m, m2 = instance_moments(x)
         rm, rm2 = _moments_ref(x)
         torch.cuda.synchronize()
         err = max(float((m - rm).abs().max()), float((m2 - rm2).abs().max()))
-        print(f"instats B={b} {h}x{h}x{c}: max_abs_err {err:.3e} (tol 1e-5)")
         if not err <= 1e-5:
-            raise AssertionError(f"instats kernel disagrees with its plain version: {err}")
-        if (b, h, c) == (SERVE_BATCH, 128, 128):
-            worst, big = err, x
-        elif h == 256:
-            print(f"instats B={b} {h}x{h}x{c}: {cuda_ms(lambda: instance_moments(x)):.4f} ms "
-                  f"(plain {cuda_ms(lambda: _moments_ref(x)):.4f}, "
-                  f"var_mean {cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)):.4f}, "
-                  "bound {:.4f} by {})".format(*instats_bound(x)))
-    x = big
-    b, h, w, c = x.shape
-    bms, by = instats_bound(x)
-    return dict(
-        name="instats", route="triton", source="ppvision_tpu_torch/ops/instats.py",
-        replaces="ppvision_tpu/ops/instats.py:66", max_abs_err=worst, path="deid",
-        ms=cuda_ms(lambda: instance_moments(x)),
-        plain_ms=cuda_ms(lambda: _moments_ref(x)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
-        shape=[b, h, w, c], tolerance="max_abs_err <= 1e-5 on both moments",
-    )
+            raise AssertionError(f"instats kernel disagrees with its plain version at {(b, h, c)}: {err}")
+        del rm, rm2
+        row = dict(
+            ms=cuda_ms(lambda: instance_moments(x)),
+            device_ms=device_us(lambda: instance_moments(x), "moments_kernel") / 1e3,
+            var_mean_ms=cuda_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
+        )
+        us = host_us(lambda: instance_moments(x))
+        bms, by = instats_bound(x)
+        for k in step:
+            step[k] += per_step * row[k]
+        print(f"instats B={b} {h}x{h}x{c}: {row['ms']:.4f} ms, {row['device_ms'] * 1e3:.2f} us on the device "
+              f"(var_mean {row['var_mean_ms']:.4f}, bound {bms:.4f} by {by}; host {us:.2f} us a call; "
+              f"{per_step} a served step); max_abs_err {err:.3e} (tol 1e-5)")
+        path = {(SERVE_BATCH, 128, 128): "deid", (VIDEO_T, 256, 64): "video"}.get((b, h, c))
+        if path == "video":
+            again = instance_moments(x)
+            if not (torch.equal(again[0], m) and torch.equal(again[1], m2)):
+                raise AssertionError("instats: two calls on the same input differ")
+        if path is not None:
+            records.append(dict(
+                name="instats", route="cuda", source="ppvision_tpu_torch/csrc/instats.cu",
+                replaces="ppvision_tpu/ops/instats.py:66", max_abs_err=err, path=path,
+                ms=row["ms"], plain_ms=cuda_ms(lambda: _moments_ref(x)),
+                bound_ms=bms, bound_by=by, library_ms=row["var_mean_ms"],
+                shape=[b, h, h, c], tolerance="max_abs_err <= 1e-5 on both moments",
+            ))
+    print(f"instats over a served step's {INSTATS_PER_STEP} launches: kernel {step['ms']:.4f} ms, "
+          f"{step['device_ms']:.4f} ms on the device, var_mean {step['var_mean_ms']:.4f} ms")
+    return records
 
 
 def conv3x3_bound(x, w) -> tuple[float, str]:
@@ -372,6 +447,29 @@ def check_corr(torch, dev) -> dict:
     )
 
 
+def record_instats_shapes():
+    """Wrap the name ``models/stargan.py`` calls instats by so that every
+    call's (B, H, W, C, dtype) is counted; returns (counts, undo)."""
+    import collections
+
+    from ppvision_tpu_torch.models import stargan
+
+    inner = stargan.instance_moments
+    seen = collections.Counter()
+
+    def spy(x):
+        seen[(*x.shape, str(x.dtype).removeprefix("torch."))] += 1
+        return inner(x)
+
+    stargan.instance_moments = spy
+    return seen, lambda: setattr(stargan, "instance_moments", inner)
+
+
+def unchecked_instats_shapes(seen) -> list:
+    """The shapes in ``seen`` that ``check_instats`` did not check."""
+    return [k for k in seen if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], k[3]) not in INSTATS_SHAPES]
+
+
 def seeded_inputs(b: int, r: int):
     import torch
 
@@ -401,11 +499,15 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     requests = [rng.random((IMG, IMG, 3), dtype=np.float32) for _ in range(3 * SERVE_BATCH - 3)]
     for fn in kernels.values():
         fn.launches = 0
+    kernels["instats"].copies = 0
+    seen, undo = record_instats_shapes()
     t0 = time.perf_counter()
     outs = list(server.serve(requests))
     wall = time.perf_counter() - t0
+    undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"served {len(outs)} requests in {wall:.3f} s; launches {launches}; stats {server.stats()}")
+    print(f"served {len(outs)} requests in {wall:.3f} s; launches {launches}; "
+          f"instats input copies {kernels['instats'].copies}; stats {server.stats()}")
     if len(outs) != len(requests):
         raise AssertionError(f"{len(outs)} outputs for {len(requests)} requests")
     for o in outs:
@@ -418,6 +520,12 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     if launches["conv3x3"] != steps * CONV3X3_PER_STEP:
         raise AssertionError(f"conv3x3 launched {launches['conv3x3']} times over {steps} served steps, "
                              f"not {CONV3X3_PER_STEP} a step")
+    if launches["instats"] != steps * INSTATS_PER_STEP:
+        raise AssertionError(f"instats launched {launches['instats']} times over {steps} served steps, "
+                             f"not {INSTATS_PER_STEP} a step")
+    want = {(b, h, h, c, "bfloat16"): steps * n for (b, h, c), n in INSTATS_SHAPES.items() if n}
+    if dict(seen) != want:
+        raise AssertionError(f"instats shapes of the served run {dict(seen)} are not {want}")
     return launches
 
 
@@ -503,22 +611,41 @@ def video_path(torch, kernels) -> dict:
     raft = build_raft(0, "cuda", corr_levels=RAFT_LEVELS, corr_radius=RAFT_RADIUS, alternate_corr=True)
     srcs = torch.from_numpy(smooth_frames(VIDEO_T, VIDEO_IMG, 21))
     refs = torch.from_numpy(np.random.default_rng(22).random((2, VIDEO_IMG, VIDEO_IMG, 3), dtype=np.float32))
+    n = min(8, VIDEO_T)
+
+    def phase():
+        fakes = deid_from_reference(
+            bundle, srcs, refs[:1].expand(VIDEO_T, -1, -1, -1), torch.zeros(VIDEO_T, dtype=torch.long)
+        ).cpu().numpy()
+        wrote = write_video(fakes, os.path.join(OUT_DIR, "video_deid.mp4"))
+        video = video_ref(bundle, srcs[:n], refs, torch.zeros(2, dtype=torch.long), os.path.join(OUT_DIR, "video_ref.mp4"))
+        score = flow_consistency(raft, srcs, fakes, iters=RAFT_ITERS)
+        torch.cuda.synchronize()
+        return fakes, wrote, video, score
+
     for fn in kernels.values():
         fn.launches = 0
+    kernels["instats"].copies = 0
+    seen, undo = record_instats_shapes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fakes = deid_from_reference(
-        bundle, srcs, refs[:1].expand(VIDEO_T, -1, -1, -1), torch.zeros(VIDEO_T, dtype=torch.long)
-    ).cpu().numpy()
-    wrote = write_video(fakes, os.path.join(OUT_DIR, "video_deid.mp4"))
-    n = min(8, VIDEO_T)
-    video = video_ref(bundle, srcs[:n], refs, torch.zeros(2, dtype=torch.long), os.path.join(OUT_DIR, "video_ref.mp4"))
-    score = flow_consistency(raft, srcs, fakes, iters=RAFT_ITERS)
-    torch.cuda.synchronize()
+    fakes, wrote, video, score = phase()
     secs = time.perf_counter() - t0
+    undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"video phase: {secs:.2f} s; flow_consistency_epe {score:.6f}; launches {launches}; "
+          f"instats input copies {kernels['instats'].copies}; instats shapes {dict(seen)}; "
           f"write_video wrote a file: {wrote}; interpolation video {video.shape}")
+    unchecked = unchecked_instats_shapes(seen)
+    if unchecked:
+        raise AssertionError(f"the video phase gave instats shapes that were not checked: {unchecked}")
+    # The same phase again under the profiler: the device's share of it.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        phase()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    instats_ms = sum(e.self_device_time_total for e in events if "moments_kernel" in e.key) / 1e3
+    print(f"video phase on the device: {busy:.1f} ms busy, instats {instats_ms:.2f} ms")
     if fakes.shape != (VIDEO_T, VIDEO_IMG, VIDEO_IMG, 3) or not np.isfinite(fakes).all():
         raise AssertionError(f"bad de-id sequence: {fakes.shape}, finite {np.isfinite(fakes).all()}")
     want = (len(get_alphas()) + 10, 2 * VIDEO_IMG, VIDEO_IMG + 32 + n * VIDEO_IMG, 3)
@@ -630,7 +757,7 @@ def main(argv=None) -> int:
         print(_build.ptxas_report(name), end="")
 
     records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
-               check_instats(torch, dev), *check_conv3x3(torch, dev), check_corr(torch, dev)]
+               *check_instats(torch, dev), *check_conv3x3(torch, dev), check_corr(torch, dev)]
     for r in records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")

@@ -5,8 +5,7 @@ module (``config``, ``optics``, ``ops``, ``models``, ``deid``,
 ``serve``, ``utils``).  Public entry points take and return the JAX
 package's NHWC layout; inside, modules run NCHW tensors in
 ``torch.channels_last`` memory format, which hands the hand-written
-Hopper kernels (``csrc/``, ``ops/instats.py``) NHWC bytes without
-copies.
+Hopper kernels (``csrc/``) NHWC bytes without copies.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; on a CPU tensor every kernel wrapper takes its plain

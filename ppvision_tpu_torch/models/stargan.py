@@ -348,7 +348,9 @@ class Generator(nn.Module):
         z, hps = self.encode(x, masks)
         reps = s.shape[0] // b0
         if reps > 1:
-            z = z.repeat(reps, 1, 1, 1)
+            # Repeated in NHWC: z stays channels_last, so the first norm's
+            # moments kernel reads it without a copy.
+            z = z.permute(0, 2, 3, 1).repeat(reps, 1, 1, 1).permute(0, 3, 1, 2)
         return self.decode(z, s, hps)
 
 

@@ -4,7 +4,7 @@ Kernels (each with its plain PyTorch version and a ``launches`` count):
 
 - :func:`fftconv.fftconv_circular` (CUDA, ``csrc/fftconv.cu``)
 - :func:`denseblock.fused_dense_block` (CUDA, ``csrc/denseblock.cu``)
-- :func:`instats.instance_moments` (Triton)
+- :func:`instats.instance_moments` (CUDA, ``csrc/instats.cu``)
 - :func:`winograd.conv3x3` (CUDA, ``csrc/winograd.cu``)
 - :func:`corr.local_corr` (CUDA, ``csrc/corr.cu``), RAFT's windowed
   correlation, off the de-id path: the video path's RAFT runs it

@@ -28,7 +28,7 @@ __all__ = ["CUDA_SOURCES", "build_all", "check", "load", "ptxas_report"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-CUDA_SOURCES = ("fftconv", "denseblock", "winograd", "corr")
+CUDA_SOURCES = ("fftconv", "denseblock", "instats", "winograd", "corr")
 
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,39 +1,47 @@
-"""Per-(sample, channel) E[x] and E[x^2] over H, W: kernel 3 (Triton).
+"""Per-(sample, channel) E[x] and E[x^2] over H, W: kernel 3.
 
 ``instance_moments(x)`` returns the f32 (B, C) mean and mean of squares
 of an NHWC tensor, each sum divided by n = H*W once, as ``jnp.mean``
-does.  On CUDA it launches a Triton kernel that replaces the Pallas
-kernel ``ppvision_tpu/ops/instats.py::_kernel``; on the CPU it runs
-:func:`_moments_ref`.
+does.  On CUDA it launches ``csrc/instats.cu``, which replaces the
+Pallas kernel ``ppvision_tpu/ops/instats.py::_kernel``; on the CPU it
+runs :func:`_moments_ref`.
 
-What bounds it on an H100: it reads each input byte once and writes
-8 bytes per (sample, channel), a pure streaming reduction with no
-tensor-core work, so HBM bandwidth sets its floor.  One program owns
-16 channels of one sample (32 contiguous bytes of bf16 per pixel, one
-full DRAM sector) and walks H*W in blocks of 256 pixels with f32
-accumulators; the reduction never crosses programs, so the result is
-deterministic.
-
-``triton`` is imported, and the kernel compiled, at the first launch:
-the module imports without it.
+The kernel is a streaming reduction bound by HBM bandwidth.  Each image
+is read whole by one block for each slice of its channels, or, where it
+is large, cut into S chunks of whole pixels (:func:`plan_split`, from
+the shape alone); a block reads its chunk of its slice with 16-byte
+loads, and where S > 1 the last block of each (image, slice) adds the S
+partial sums in a fixed order.  So the result's bits depend on the shape
+alone: two calls agree bit for bit.  The partial sums and the tickets
+live in a scratch buffer the wrapper keeps per device and stream (the
+kernel leaves the tickets zeroed); the kernel allocates nothing.
 """
 
 from __future__ import annotations
 
-import os
+import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-__all__ = ["instance_moments", "_moments_ref"]
+__all__ = ["instance_moments", "plan_split", "_moments_ref"]
 
-# Bound to ``triton.language`` at the first launch (see _triton_kernel);
-# the annotations below stay strings until Triton reads them.
-tl = None
-_KERNEL = None
-_BLOCK_HW = 256
-_BLOCK_C = 16
+_SIGS = {"instance_moments": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
+
+SPREAD_BLOCKS = 128  # blocks the channel slices reach where they can: about one an SM
+FILL_BLOCKS = 2 * 132  # blocks the pixel chunks aim at: two for each of an H100's 132 SMs
+# Bytes a block reads: an (image, slice) of at most MAX_CHUNK is one
+# block; a larger image is cut into chunks of at most MAX_CHUNK, none
+# under MIN_CHUNK (one round of 16 loads of 16 bytes a thread is 64 KB).
+# A channel slice is at least MIN_SLICE bytes a pixel.
+MIN_CHUNK = 64 << 10
+MAX_CHUNK = 128 << 10
+MIN_SLICE = 32
+
+# (device index, stream) -> (partial sums, tickets), grown as needed.
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _moments_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -42,59 +50,87 @@ def _moments_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xf.mean(dim=(1, 2)), (xf * xf).mean(dim=(1, 2))
 
 
-def _moments_kernel(x_ptr, m_ptr, m2_ptr, HW, C, n, BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr):
-    b = tl.program_id(0)
-    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    base = x_ptr + b.to(tl.int64) * HW * C
-    acc = tl.zeros((BLOCK_HW, BLOCK_C), dtype=tl.float32)
-    acc2 = tl.zeros((BLOCK_HW, BLOCK_C), dtype=tl.float32)
-    for start in range(0, HW, BLOCK_HW):
-        rows = start + tl.arange(0, BLOCK_HW)
-        mask = (rows < HW)[:, None] & cmask[None, :]
-        v = tl.load(base + rows[:, None] * C + cols[None, :], mask=mask, other=0.0)
-        v = v.to(tl.float32)
-        acc += v
-        acc2 += v * v
-    s = tl.sum(acc, axis=0)
-    s2 = tl.sum(acc2, axis=0)
-    # IEEE division, as jnp.mean divides its f32 sum by n.
-    tl.store(m_ptr + b * C + cols, tl.fdiv(s, n, ieee_rounding=True), mask=cmask)
-    tl.store(m2_ptr + b * C + cols, tl.fdiv(s2, n, ieee_rounding=True), mask=cmask)
+@functools.lru_cache(maxsize=256)
+def plan_split(b: int, hw: int, c: int, esize: int) -> tuple[int, int, int]:
+    """(S, chunk, slices): the kernel cuts each of the ``b`` images of
+    ``hw`` pixels into S chunks of ``chunk`` whole pixels (the last may
+    be shorter, none is empty) and its ``c`` channels into ``slices``.
+
+    Slices need no combine, so a small image is one chunk: as few
+    16-byte-aligned slices of at least MIN_SLICE bytes a pixel as give
+    SPREAD_BLOCKS blocks (or as many as there may be), if a slice is then
+    at most MAX_CHUNK bytes.  A larger image is not sliced but cut into
+    chunks: enough for at most MAX_CHUNK bytes a block and for
+    FILL_BLOCKS blocks, but none under MIN_CHUNK bytes."""
+    row = c * esize
+    per_img = hw * row
+    slices = 1
+    if row % 16 == 0:
+        groups = row // 16
+        for d in range(2, groups + 1):
+            if b * slices >= SPREAD_BLOCKS:
+                break
+            if groups % d == 0 and row // d >= MIN_SLICE:
+                slices = d
+    if per_img // slices <= MAX_CHUNK:
+        return 1, hw, slices
+    s = max(-(-per_img // MAX_CHUNK), FILL_BLOCKS // b)
+    s = max(1, min(s, per_img // MIN_CHUNK, hw))
+    chunk = -(-hw // s)
+    return -(-hw // chunk), chunk, 1
 
 
-def _triton_kernel():
-    global tl, _KERNEL
-    if _KERNEL is None:
-        # Triton's compile cache goes beside the CUDA builds, inside the
-        # checkout, unless the caller chose a place.
-        os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
-        import triton
-        import triton.language
+def _scratch(device: torch.device, stream: int, floats: int, lines: int):
+    ws, tickets = _SCRATCH.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < lines:
+        tickets = torch.zeros(lines, dtype=torch.int32, device=device)
+    _SCRATCH[device.index, stream] = ws, tickets
+    return ws, tickets
 
-        tl = triton.language
-        _KERNEL = triton.jit(_moments_kernel)
-    return _KERNEL
+
+def _launch(x: torch.Tensor, splits: int, chunk: int, slices: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel on a contiguous NHWC ``x`` cut ``splits`` x
+    ``chunk`` pixels and ``slices`` channel slices."""
+    b, h, w, c = x.shape
+    esize = x.element_size()
+    vec = 16 // esize if (c * esize) % 16 == 0 and x.data_ptr() % 16 == 0 else 1
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = tickets = None
+    if splits > 1:
+        ws, tickets = _scratch(x.device, stream, b * splits * 2 * c, b * slices)
+        ws, tickets = ws.data_ptr(), tickets.data_ptr()
+    lib = _build.load("instats", _SIGS)
+    err = lib.instance_moments(
+        x.data_ptr(), out.data_ptr(), ws, tickets, b, h * w, c, esize, vec, chunk, splits, slices, stream
+    )
+    _build.check(lib, err, "instance_moments")
+    instance_moments.launches += 1
+    return out.unbind(0)
 
 
 def instance_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean, mean of squares) over the (H, W) axes of an NHWC tensor,
     f32, shape (B, C) each.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise.  A CUDA tensor that is not
+    contiguous is copied first, and ``instance_moments.copies`` counts
+    those calls."""
     if x.device.type != "cuda":
         return _moments_ref(x)
-    if x.ndim != 4 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"instats kernel takes bf16/f32 NHWC input, got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+    if x.ndim != 4 or x.dtype not in (torch.bfloat16, torch.float32) or x.numel() == 0:
+        raise ValueError(
+            f"instats kernel takes non-empty bf16/f32 NHWC input, got {x.dtype} {tuple(x.shape)}"
+        )
     b, h, w, c = x.shape
-    m = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    m2 = torch.empty_like(m)
-    kernel = _triton_kernel()
-    grid = (b, (c + _BLOCK_C - 1) // _BLOCK_C)
-    kernel[grid](x, m, m2, h * w, c, float(h * w), BLOCK_HW=_BLOCK_HW, BLOCK_C=_BLOCK_C,
-                 num_warps=4)
-    instance_moments.launches += 1
-    return m, m2
+    if b > 65535:
+        raise ValueError(f"instats kernel takes at most 65535 images, got {b}")
+    if not x.is_contiguous():
+        instance_moments.copies += 1
+        x = x.contiguous()
+    return _launch(x, *plan_split(b, h * w, c, x.element_size()))
 
 
 instance_moments.launches = 0
+instance_moments.copies = 0

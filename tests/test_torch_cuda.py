@@ -18,7 +18,7 @@ import torch
 from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
 from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
-from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
+from ppvision_tpu_torch.ops.instats import _launch, _moments_ref, instance_moments
 from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
 
 pytestmark = pytest.mark.cuda
@@ -76,15 +76,62 @@ def test_dense_block_kernel_matches_plain(dev, f, h):
     assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
 
 
-@pytest.mark.parametrize("shape", [(8, 128, 128, 128), (8, 8, 8, 512), (3, 5, 7, 48)])
-def test_moments_kernel_matches_plain(dev, shape):
-    x = _randn(np.random.default_rng(2), shape).to(dev, torch.bfloat16)
+# The de-id path's seven shapes; the video path's largest at B = 16, its
+# 256^2 encode shapes at B = 8 and its decode at B = 248; either side of
+# the boundaries tests/test_torch_instats.py pins the plans of (one
+# sliced block a 126.6 KB slice at 8 x 45^2 x 512, unsliced chunks at
+# 46^2; one block an image at 8 x 16^2 x 248, 124 KB; 33 channel
+# groups in 11 slices of 3, and unsliced at B = 264, where they leave 25
+# of 256 threads idle; one block at 2 x 96^2 x 7, two chunks at 97^2);
+# one 256^2 image in many chunks;
+# C = 48, and C = 7 and 13 (one element a load); f32; 512 channel groups
+# in one block (two passes over each chunk) and in slices.
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((8, 128, 128, 128), "bfloat16"), ((8, 64, 64, 128), "bfloat16"), ((8, 64, 64, 256), "bfloat16"),
+     ((8, 32, 32, 256), "bfloat16"), ((8, 32, 32, 512), "bfloat16"), ((8, 16, 16, 512), "bfloat16"),
+     ((8, 8, 8, 512), "bfloat16"), ((16, 256, 256, 64), "bfloat16"),
+     ((8, 256, 256, 64), "bfloat16"), ((8, 128, 128, 64), "bfloat16"), ((248, 8, 8, 512), "bfloat16"),
+     ((248, 16, 16, 512), "bfloat16"), ((248, 128, 128, 128), "bfloat16"), ((248, 256, 256, 64), "bfloat16"),
+     ((8, 45, 45, 512), "bfloat16"), ((8, 46, 46, 512), "bfloat16"), ((17, 8, 8, 512), "bfloat16"),
+     ((8, 16, 16, 248), "bfloat16"), ((8, 16, 16, 264), "bfloat16"), ((264, 4, 4, 264), "bfloat16"), ((2, 96, 96, 7), "bfloat16"),
+     ((2, 97, 97, 7), "bfloat16"), ((1, 256, 256, 64), "bfloat16"),
+     ((3, 5, 7, 48), "bfloat16"), ((2, 61, 67, 7), "bfloat16"), ((3, 40, 40, 13), "float32"),
+     ((4, 64, 64, 64), "float32"), ((264, 2, 2, 4096), "bfloat16"), ((2, 16, 16, 4096), "bfloat16")],
+)
+def test_moments_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
     before = instance_moments.launches
     m, m2 = instance_moments(x)
     assert instance_moments.launches == before + 1
     rm, rm2 = _moments_ref(x)
+    # f32 sums of O(1) values in another order.
     assert float((m - rm).abs().max()) <= 1e-5
     assert float((m2 - rm2).abs().max()) <= 1e-5
+
+
+# (S, slices) the planner does not pick at (8, 64, 64, 128): chunks and
+# slices together (a ticket a slice), odd S, 32-byte slices, one block
+# an image, and chunks of one pass (a load depth of 1) and of four.
+@pytest.mark.parametrize("splits,slices", [(4, 4), (16, 2), (5, 8), (1, 16), (1, 1), (128, 1), (64, 2)])
+def test_moments_kernel_takes_any_plan(dev, splits, slices):
+    x = torch.randn((8, 64, 64, 128), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    x = x.to(torch.bfloat16)
+    chunk = -(-64 * 64 // splits)
+    m, m2 = _launch(x, -(-64 * 64 // chunk), chunk, slices)
+    rm, rm2 = _moments_ref(x)
+    assert float((m - rm).abs().max()) <= 1e-5
+    assert float((m2 - rm2).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256, 64), (8, 128, 128, 128), (8, 64, 64, 128), (8, 8, 8, 512)])
+def test_moments_kernel_is_bitwise_repeatable(dev, shape):
+    x = _randn(np.random.default_rng(8), shape).to(dev, torch.bfloat16)
+    first = instance_moments(x)
+    for _ in range(3):
+        again = instance_moments(x)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
 # The paths' shapes, among them those whose tiles span images (8^2, 4^2)
