@@ -17,17 +17,20 @@ What it does, in order; any failure raises and exits non-zero:
    tolerance, and times the kernel, the plain version and one library
    call that computes the same function, where there is one, beside the
    kernel's bound; fftconv gets one record at each path's shape;
-   conv3x3 and instats are checked and timed at every shape either path
-   gives them, with instats' device microseconds and host microseconds
-   a call, and the sums over a served step's 93 and 145 launches; two
-   instats calls must agree bit for bit;
+   conv3x3, instats and denseblock are checked and timed at every shape
+   either path gives them, with instats' and denseblock's device
+   microseconds, instats' host microseconds a call, and the sums over a
+   served step's 93, 145 and 15 launches; two instats calls, and two
+   denseblock calls, must agree bit for bit; ptxas may not have
+   serialized any wgmma (C7513, C7515);
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
    R = 10 styles), with every launch count set to 0 just before and read
    just after: each of the four de-id kernels must have run, conv3x3
-   exactly 93 and instats exactly 145 times a step, each instats shape
-   as often as ``INSTATS_SHAPES`` says; prints how many instats inputs
-   had to be copied to be contiguous;
+   exactly 93, instats 145 and denseblock 15 times a step, each instats
+   and denseblock shape as often as ``INSTATS_SHAPES`` and
+   ``DENSEBLOCK_SHAPES`` say; prints how many instats inputs had to be
+   copied to be contiguous;
 5. holds a B=2, R=2 GPU run against the port's own CPU run on the same
    weights and inputs (float32 and bfloat16 compute);
 6. prints de-id images/s of ``deid_multi_style`` timed with CUDA events;
@@ -39,10 +42,11 @@ What it does, in order; any failure raises and exits non-zero:
    on 8 sources and 2 references, and ``flow_consistency`` over the 30
    frame pairs in one RAFT call; launch counts set to 0 just before and
    read just after: all five kernels must have run, the correlation
-   kernel 4 levels x 12 iterations = 48 times; every instats shape of
-   both paths must be one that step 3 checked; instats input copies;
-   then the same phase again under ``torch.profiler``: its device busy
-   milliseconds and instats' share of them;
+   kernel 4 levels x 12 iterations = 48 times; every instats and
+   denseblock shape of both paths must be one that step 3 checked;
+   instats input copies; then the same phase again under
+   ``torch.profiler``: its device busy milliseconds and instats' and
+   denseblock's shares of them;
 8. RAFT on the card: the alternate path against the dense path at the
    same weights (B=2, 256x256, 3 iterations), and against the port's
    CPU RAFT (B=1, 128x128, 3 iterations);
@@ -161,51 +165,86 @@ def check_fftconv(torch, dev) -> list[dict]:
     return records
 
 
-def check_denseblock(torch, dev) -> dict:
-    from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
-
-    g = torch.Generator().manual_seed(1)
-
-    def make(b, h, f):
-        half, q = f // 2, f // 4
-        x = torch.randn((b, h, h, f), generator=g).to(dev, torch.bfloat16)
-        ks = [
-            (torch.randn(shape, generator=g) * (1.0 / math.sqrt(9 * shape[2]))).to(dev, torch.bfloat16)
-            for shape in ((3, 3, f, half), (3, 3, half, q), (3, 3, q, q))
-        ]
-        bns = [
-            ((1 + 0.1 * torch.randn(c, generator=g)).to(dev), (0.1 * torch.randn(c, generator=g)).to(dev))
-            for c in (f, half, q)
-        ]
-        return x, ks, bns
-
-    worst = 0.0
-    # The FAN path's shapes: F=128 at 64^2, F=256 at 64^2 .. 4^2.
-    for f, h in ((128, 64), (256, 64), (256, 32), (256, 16), (256, 8), (256, 4)):
-        x, ks, bns = make(SERVE_BATCH, h, f)
-        got = fused_dense_block(x, *ks, *bns).float()
-        want = dense_block_ref(x, *ks, *bns).float()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / (float(want.abs().max()) + 1e-8)
-        print(f"denseblock F={f} {h}x{h}: max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
-        if not rel < 2e-2:
-            raise AssertionError(f"denseblock kernel disagrees with its plain version: rel {rel}")
-        if (f, h) == (256, 64):
-            worst, args = err, (x, ks, bns)
-    x, ks, bns = args
+def denseblock_bound(x, ks) -> tuple[float, str]:
+    """x read once, the output written once, the weights, 2 x the MACs."""
     b, h, w, f = x.shape
     macs = b * h * w * 9 * (f * f // 2 + f // 2 * f // 4 + f // 4 * f // 4)
-    nbytes = 2 * (2 * x.numel() + sum(k.numel() for k in ks)) + 4 * 6 * f
-    bms, by = bound(nbytes, 2 * macs, BF16_FLOP_S)
-    return dict(
-        name="denseblock", route="cuda", source="ppvision_tpu_torch/csrc/denseblock.cu",
-        replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=worst, path="deid",
-        ms=cuda_ms(lambda: fused_dense_block(x, *ks, *bns)),
-        plain_ms=cuda_ms(lambda: dense_block_ref(x, *ks, *bns)),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=[b, h, w, f], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
-    )
+    return bound(2 * (2 * x.numel() + sum(k.numel() for k in ks)) + 4 * 6 * f, 2 * macs, BF16_FLOP_S)
+
+
+# (B, H, F) of every DenseConvBlock FAN runs as kernel 2 (bf16, in = out
+# features), with its launches per served de-id step: FAN runs at 256^2
+# on the step's 8 sources, the stem's 128-wide block and top_m_0 at 64^2,
+# the depth-4 hourglass's 13 blocks at 64^2 .. 4^2.  The video phase runs
+# FAN on its 16 frames and on the interpolation video's 8 sources (the
+# served shapes); none of that is in the served step.  The served run and
+# the video phase check that they take no other shape.
+DENSEBLOCK_SHAPES = {
+    (8, 64, 128): 1, (8, 64, 256): 2, (8, 32, 256): 3, (8, 16, 256): 3, (8, 8, 256): 3, (8, 4, 256): 3,
+    (VIDEO_T, 64, 128): 0, (VIDEO_T, 64, 256): 0, (VIDEO_T, 32, 256): 0, (VIDEO_T, 16, 256): 0,
+    (VIDEO_T, 8, 256): 0, (VIDEO_T, 4, 256): 0,
+}
+DENSEBLOCK_PER_STEP = sum(DENSEBLOCK_SHAPES.values())  # 15
+
+
+def fan_args(ks, bns) -> tuple:
+    """The kernel's arguments after x as ``DenseConvBlock`` hands them
+    over: the weights packed, the BN pairs in one (6, F) pack."""
+    from ppvision_tpu_torch.ops.denseblock import pack_dense_bn
+    from ppvision_tpu_torch.ops.winograd import pack_conv3x3_weight
+
+    return (*[pack_conv3x3_weight(k) for k in ks], pack_dense_bn(bns, ks[0].shape[2]))
+
+
+def check_denseblock(torch, dev, kernel_args=fan_args) -> dict:
+    """Kernel 2 at every shape of ``DENSEBLOCK_SHAPES``, called with
+    ``kernel_args(ks, bns)`` after x: error against the plain version
+    (the cuDNN chain), the kernel's time in a 20-call window and on the
+    device (its passes summed) beside the chain's and the bound, one line
+    each, and the sums over a served step's 15 launches.  At 8x64x64x256
+    two calls and the HWIO call must agree bit for bit; one record there."""
+    from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    step = {"ms": 0.0, "device_ms": 0.0, "chain_ms": 0.0}
+    for (b, h, f), per_step in DENSEBLOCK_SHAPES.items():
+        x = torch.randn((b, h, h, f), generator=g, device=dev, dtype=torch.bfloat16)
+        ks = [(torch.randn(s, generator=g, device=dev) / math.sqrt(9 * s[2])).to(torch.bfloat16)
+              for s in ((3, 3, f, f // 2), (3, 3, f // 2, f // 4), (3, 3, f // 4, f // 4))]
+        bns = [(1 + 0.1 * torch.randn(c, generator=g, device=dev), 0.1 * torch.randn(c, generator=g, device=dev))
+               for c in (f, f // 2, f // 4)]
+        args = kernel_args(ks, bns)
+        out = fused_dense_block(x, *args)
+        want = dense_block_ref(x, *ks, *bns).float()
+        torch.cuda.synchronize()
+        err = float((out.float() - want).abs().max())
+        rel = err / (float(want.abs().max()) + 1e-8)
+        if not rel < 2e-2:
+            raise AssertionError(f"denseblock kernel disagrees with its plain version at {(b, h, f)}: rel {rel}")
+        del want
+        row = dict(
+            ms=cuda_ms(lambda: fused_dense_block(x, *args)),
+            device_ms=device_us(lambda: fused_dense_block(x, *args), "denseblock") / 1e3,
+            chain_ms=cuda_ms(lambda: dense_block_ref(x, *ks, *bns)),
+        )
+        bms, by = denseblock_bound(x, ks)
+        for k in step:
+            step[k] += per_step * row[k]
+        print(f"denseblock B={b} {h}x{h}x{f}: {row['ms']:.4f} ms, {row['device_ms'] * 1e3:.2f} us on the device "
+              f"(cuDNN chain {row['chain_ms']:.4f}, bound {bms:.4f} by {by}; {per_step} a served step); "
+              f"max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
+        if (b, h, f) == (SERVE_BATCH, 64, 256):
+            if not (torch.equal(fused_dense_block(x, *args), out) and torch.equal(fused_dense_block(x, *ks, *bns), out)):
+                raise AssertionError("denseblock: two calls, or the packed and HWIO calls, differ")
+            record = dict(
+                name="denseblock", route="cuda", source="ppvision_tpu_torch/csrc/denseblock.cu",
+                replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=err, path="deid",
+                ms=row["ms"], plain_ms=row["chain_ms"], bound_ms=bms, bound_by=by, library_ms=None,
+                shape=[b, h, h, f], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
+            )
+    print(f"denseblock over a served step's {DENSEBLOCK_PER_STEP} launches: kernel {step['ms']:.4f} ms, "
+          f"{step['device_ms']:.4f} ms on the device, cuDNN chain {step['chain_ms']:.4f} ms")
+    return record
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -224,9 +263,9 @@ def host_us(fn, calls: int = 1000) -> float:
 
 
 def device_us(fn, kernel: str, calls: int = 20) -> float:
-    """Mean device microseconds of the kernels named ``kernel`` over
-    ``calls`` calls of ``fn``, from ``torch.profiler``; NaN where the
-    profiler saw no such kernel."""
+    """Mean device microseconds of the kernels whose name holds ``kernel``
+    (any case) over ``calls`` calls of ``fn``, from ``torch.profiler``;
+    NaN where the profiler saw no such kernel."""
     import torch
 
     fn()
@@ -235,7 +274,7 @@ def device_us(fn, kernel: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
+    events = [e for e in prof.key_averages() if kernel in e.key.lower()]
     return sum(e.self_device_time_total for e in events) / calls if events else math.nan
 
 
@@ -340,15 +379,16 @@ CONV3X3_PER_STEP = sum(CONV3X3_SHAPES.values())  # 93
 
 def check_conv3x3(torch, dev) -> list[dict]:
     """Kernel 4 at all eleven path shapes: error against the plain
-    version, the kernel's time beside ``F.conv2d`` (channels_last) and
-    the bound, one line each, and the sum over a served step's 93
-    launches.  One record at each path's largest shape."""
+    version, the kernel's time in a 20-call window and on the device
+    beside ``F.conv2d`` (channels_last) and the bound, one line each, and
+    the sums over a served step's 93 launches.  One record at each path's
+    largest shape."""
     import torch.nn.functional as F
 
     from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
 
     g = torch.Generator().manual_seed(3)
-    records, step_ms, step_lib_ms = [], 0.0, 0.0
+    records, step_ms, step_dev_ms, step_lib_ms = [], 0.0, 0.0, 0.0
     for (b, h, c, k), per_step in CONV3X3_SHAPES.items():
         x = torch.randn((b, h, h, c), generator=g).to(dev, torch.bfloat16)
         w = (torch.randn((3, 3, c, k), generator=g) / math.sqrt(9 * c)).to(dev, torch.bfloat16)
@@ -363,12 +403,15 @@ def check_conv3x3(torch, dev) -> list[dict]:
         x_cl = x.permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         ms = cuda_ms(lambda: conv3x3(x, wp))
+        dev_ms = device_us(lambda: conv3x3(x, wp), "conv3x3_kernel") / 1e3
         lib_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
         bms, by = conv3x3_bound(x, w)
         step_ms += per_step * ms
+        step_dev_ms += per_step * dev_ms
         step_lib_ms += per_step * lib_ms
-        print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {ms:.4f} ms (F.conv2d {lib_ms:.4f}, bound {bms:.4f} "
-              f"by {by}; {per_step} a served step); max_abs_err {err:.3e} rel {rel:.3e} (tol rel 2e-2)")
+        print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {ms:.4f} ms, {dev_ms * 1e3:.2f} us on the device (F.conv2d "
+              f"{lib_ms:.4f}, bound {bms:.4f} by {by}; {per_step} a served step); max_abs_err {err:.3e} "
+              f"rel {rel:.3e} (tol rel 2e-2)")
         path = {(8, 128, 128, 128): "deid", (VIDEO_T, 256, 64, 64): "video"}.get((b, h, c, k))
         if path is not None:
             records.append(dict(
@@ -379,7 +422,7 @@ def check_conv3x3(torch, dev) -> list[dict]:
                 shape=[b, h, h, c, k], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
             ))
     print(f"conv3x3 over a served step's {CONV3X3_PER_STEP} launches: kernel {step_ms:.4f} ms, "
-          f"F.conv2d {step_lib_ms:.4f} ms")
+          f"{step_dev_ms:.4f} ms on the device, F.conv2d {step_lib_ms:.4f} ms")
     return records
 
 
@@ -447,27 +490,44 @@ def check_corr(torch, dev) -> dict:
     )
 
 
-def record_instats_shapes():
-    """Wrap the name ``models/stargan.py`` calls instats by so that every
-    call's (B, H, W, C, dtype) is counted; returns (counts, undo)."""
+def record_shapes():
+    """Wrap the names ``models/stargan.py`` calls instats by and
+    ``models/fan.py`` calls denseblock by, so that every call's (B, H, W,
+    C, dtype) is counted; returns ({kernel: counts}, undo)."""
     import collections
 
-    from ppvision_tpu_torch.models import stargan
+    from ppvision_tpu_torch.models import fan, stargan
 
-    inner = stargan.instance_moments
-    seen = collections.Counter()
+    names = {"instats": (stargan, "instance_moments"), "denseblock": (fan, "fused_dense_block")}
+    seen = {k: collections.Counter() for k in names}
+    inner = {k: getattr(mod, fn) for k, (mod, fn) in names.items()}
 
-    def spy(x):
-        seen[(*x.shape, str(x.dtype).removeprefix("torch."))] += 1
-        return inner(x)
+    def spy(kernel):
+        def call(x, *args):
+            seen[kernel][(*x.shape, str(x.dtype).removeprefix("torch."))] += 1
+            return inner[kernel](x, *args)
 
-    stargan.instance_moments = spy
-    return seen, lambda: setattr(stargan, "instance_moments", inner)
+        return call
+
+    for k, (mod, fn) in names.items():
+        setattr(mod, fn, spy(k))
+
+    def undo():
+        for k, (mod, fn) in names.items():
+            setattr(mod, fn, inner[k])
+
+    return seen, undo
 
 
-def unchecked_instats_shapes(seen) -> list:
-    """The shapes in ``seen`` that ``check_instats`` did not check."""
-    return [k for k in seen if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], k[3]) not in INSTATS_SHAPES]
+# The shape tables the spies' counts are held to: (B, H, C) -> launches a step.
+SHAPE_TABLES = {"instats": INSTATS_SHAPES, "denseblock": DENSEBLOCK_SHAPES}
+
+
+def unchecked_shapes(seen) -> list:
+    """The shapes in ``seen`` that ``check_instats`` and
+    ``check_denseblock`` did not check."""
+    return [(kernel, k) for kernel, counts in seen.items() for k in counts
+            if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], k[3]) not in SHAPE_TABLES[kernel]]
 
 
 def seeded_inputs(b: int, r: int):
@@ -500,7 +560,7 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     kernels["instats"].copies = 0
-    seen, undo = record_instats_shapes()
+    seen, undo = record_shapes()
     t0 = time.perf_counter()
     outs = list(server.serve(requests))
     wall = time.perf_counter() - t0
@@ -520,12 +580,14 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     if launches["conv3x3"] != steps * CONV3X3_PER_STEP:
         raise AssertionError(f"conv3x3 launched {launches['conv3x3']} times over {steps} served steps, "
                              f"not {CONV3X3_PER_STEP} a step")
-    if launches["instats"] != steps * INSTATS_PER_STEP:
-        raise AssertionError(f"instats launched {launches['instats']} times over {steps} served steps, "
-                             f"not {INSTATS_PER_STEP} a step")
-    want = {(b, h, h, c, "bfloat16"): steps * n for (b, h, c), n in INSTATS_SHAPES.items() if n}
-    if dict(seen) != want:
-        raise AssertionError(f"instats shapes of the served run {dict(seen)} are not {want}")
+    for kernel, table in SHAPE_TABLES.items():
+        per_step = sum(table.values())
+        if launches[kernel] != steps * per_step:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times over {steps} served steps, "
+                                 f"not {per_step} a step")
+        want = {(b, h, h, c, "bfloat16"): steps * n for (b, h, c), n in table.items() if n}
+        if dict(seen[kernel]) != want:
+            raise AssertionError(f"{kernel} shapes of the served run {dict(seen[kernel])} are not {want}")
     return launches
 
 
@@ -576,10 +638,11 @@ def throughput(torch, card: str) -> None:
             torch.cuda.synchronize()
         events = prof.key_averages()
         busy = sum(e.self_device_time_total for e in events) / 1e3
+        dense = sum(e.self_device_time_total for e in events if "denseblock" in e.key.lower()) / 1e3
         print(json.dumps({
             "deid_multi_style_img_s": b * R_STYLES / (ms / 1e3), "B": b, "R": R_STYLES,
             "ms_per_call": ms, "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / ms),
-            "img": IMG, "card": card,
+            "denseblock_device_ms": dense, "img": IMG, "card": card,
         }))
     print(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
 
@@ -626,7 +689,7 @@ def video_path(torch, kernels) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     kernels["instats"].copies = 0
-    seen, undo = record_instats_shapes()
+    seen, undo = record_shapes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fakes, wrote, video, score = phase()
@@ -634,18 +697,20 @@ def video_path(torch, kernels) -> dict:
     undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"video phase: {secs:.2f} s; flow_consistency_epe {score:.6f}; launches {launches}; "
-          f"instats input copies {kernels['instats'].copies}; instats shapes {dict(seen)}; "
+          f"instats input copies {kernels['instats'].copies}; shapes {({k: dict(v) for k, v in seen.items()})}; "
           f"write_video wrote a file: {wrote}; interpolation video {video.shape}")
-    unchecked = unchecked_instats_shapes(seen)
+    unchecked = unchecked_shapes(seen)
     if unchecked:
-        raise AssertionError(f"the video phase gave instats shapes that were not checked: {unchecked}")
+        raise AssertionError(f"the video phase gave kernel shapes that were not checked: {unchecked}")
     # The same phase again under the profiler: the device's share of it.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         phase()
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events) / 1e3
     instats_ms = sum(e.self_device_time_total for e in events if "moments_kernel" in e.key) / 1e3
-    print(f"video phase on the device: {busy:.1f} ms busy, instats {instats_ms:.2f} ms")
+    dense_ms = sum(e.self_device_time_total for e in events if "denseblock" in e.key.lower()) / 1e3
+    print(f"video phase on the device: {busy:.1f} ms busy, instats {instats_ms:.2f} ms, "
+          f"denseblock {dense_ms:.2f} ms")
     if fakes.shape != (VIDEO_T, VIDEO_IMG, VIDEO_IMG, 3) or not np.isfinite(fakes).all():
         raise AssertionError(f"bad de-id sequence: {fakes.shape}, finite {np.isfinite(fakes).all()}")
     want = (len(get_alphas()) + 10, 2 * VIDEO_IMG, VIDEO_IMG + 32 + n * VIDEO_IMG, 3)
@@ -754,7 +819,10 @@ def main(argv=None) -> int:
     secs = _build.build_all()
     print(f"kernel build: {secs:.1f} s")
     for name in _build.CUDA_SOURCES:
-        print(_build.ptxas_report(name), end="")
+        report = _build.ptxas_report(name)
+        print(report, end="")
+        if "C7513" in report or "C7515" in report:
+            raise AssertionError(f"ptxas serialized the wgmmas of csrc/{name}.cu")
 
     records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
                *check_instats(torch, dev), *check_conv3x3(torch, dev), check_corr(torch, dev)]

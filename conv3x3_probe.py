@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 conv3x3_probe.py
 
-Each variant is ``ppvision_tpu_torch/csrc/winograd.cu`` with one part of
-the stage loop taken out; the first is the source as it stands:
+Each variant is ``ppvision_tpu_torch/csrc/winograd.cu`` on its mainloop,
+``csrc/conv3x3_wgmma.cuh``, with one part of the stage loop taken out;
+the first is the source as it stands:
 
 - "no MMAs": the loop loads every stage but issues no ``wgmma``;
 - "no loads": after the prologue the loop loads nothing and waits only
@@ -28,6 +29,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -55,7 +57,7 @@ def variant_source(base: str, drop: tuple) -> str:
             body = body.replace(line, "", 1)
             continue
         if body.count(LOOP_LINES[name]) != 1:
-            raise ValueError(f"csrc/winograd.cu's stage loop has no single {name!r} line")
+            raise ValueError(f"csrc/conv3x3_wgmma.cuh's stage loop has no single {name!r} line")
         keep = {
             "mma": "      for (int i = 0; i < MT; ++i) {}\n",
             # The prologue's bulk copies must still land before the block exits.
@@ -66,17 +68,22 @@ def variant_source(base: str, drop: tuple) -> str:
 
 
 def build_variants(probe_dir: str) -> dict:
-    """One nvcc per variant, all at once; returns the loaded libraries."""
+    """One nvcc per variant, all at once; returns the loaded libraries.
+    Variant i is ``winograd.cu`` beside its own copy of the mainloop
+    header in ``probe_dir/v<i>/``, which its quoted include finds first."""
     from ppvision_tpu_torch.ops import _build
     from ppvision_tpu_torch.ops.winograd import _SIGS
 
-    with open(os.path.join(_build.CSRC, "winograd.cu")) as f:
+    with open(os.path.join(_build.CSRC, "conv3x3_wgmma.cuh")) as f:
         base = f.read()
     jobs = {}
     for i, (name, drop) in enumerate(VARIANTS.items()):
-        cu = os.path.join(probe_dir, f"v{i}.cu")
-        with open(cu, "w") as f:
+        vdir = os.path.join(probe_dir, f"v{i}")
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "conv3x3_wgmma.cuh"), "w") as f:
             f.write(variant_source(base, drop))
+        cu = os.path.join(vdir, "winograd.cu")
+        shutil.copyfile(os.path.join(_build.CSRC, "winograd.cu"), cu)
         cmd = [_build._nvcc(), *_build._FLAGS, "-I", _build.CSRC, "-o", cu[:-3] + ".so", cu]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (cu[:-3] + ".so", proc)

@@ -23,9 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.denseblock import dense_block_supported, fused_dense_block
+from ..ops.denseblock import dense_block_supported, fused_dense_block, pack_dense_bn
 from ..ops.fusedconv import conv3x3_avgpool2x
 from ..ops.image import avg_pool_2x, resize_bilinear, upsample_nearest_2x
+from ..ops.winograd import pack_conv3x3_weight
 from .stargan import Conv
 
 __all__ = [
@@ -137,18 +138,26 @@ class DenseConvBlock(nn.Module):
                 nn.ReLU(),
                 Conv(in_features, features, 1, bias=False, dtype=dtype),
             )
-        self._hwio_key = None
-        self._hwio = None
+        self._args_key = None
+        self._args = None
 
-    def _hwio_weights(self, dtype) -> list[torch.Tensor]:
-        """The three kernels as HWIO in the compute dtype, made once per
-        weight version."""
+    def _kernel_args(self, dtype, packed: bool) -> tuple[torch.Tensor, ...]:
+        """What ``fused_dense_block`` takes after x, made once per version
+        of the weights and BN entries: the three kernels in the compute
+        dtype (packed by ``pack_conv3x3_weight`` for the CUDA kernel, HWIO
+        for the CPU's plain version) and the (6, F) BN pack."""
+        bns = (self.bn1, self.bn2, self.bn3)
         ws = (self.conv1.weight, self.conv2.weight, self.conv3.weight)
-        key = tuple((w._version, w.data_ptr()) for w in ws) + (dtype,)
-        if key != self._hwio_key:
-            self._hwio = [w.detach().permute(2, 3, 1, 0).to(dtype).contiguous() for w in ws]
-            self._hwio_key = key
-        return self._hwio
+        ts = ws + tuple(t for bn in bns for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var))
+        key = tuple((t._version, t.data_ptr()) for t in ts) + (dtype, packed)
+        if key != self._args_key:
+            with torch.no_grad():
+                ks = [w.permute(2, 3, 1, 0).to(dtype).contiguous() for w in ws]
+                if packed:
+                    ks = [pack_conv3x3_weight(k) for k in ks]
+                self._args = (*ks, pack_dense_bn([bn.fold() for bn in bns], self.features))
+            self._args_key = key
+        return self._args
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
@@ -159,10 +168,8 @@ class DenseConvBlock(nn.Module):
             and x.dtype == dt
             and (x.device.type != "cuda" or dense_block_supported(xn))
         ):
-            # Whole block in one launch on CUDA; its plain op chain on CPU.
-            out = fused_dense_block(
-                xn, *self._hwio_weights(dt), self.bn1.fold(), self.bn2.fold(), self.bn3.fold()
-            )
+            # Whole block in one kernel call on CUDA; its plain op chain on CPU.
+            out = fused_dense_block(xn, *self._kernel_args(dt, x.device.type == "cuda"))
             return out.permute(0, 3, 1, 2)
 
         o1 = _conv(torch.relu(self.bn1(x)), self.conv1.weight, dt, 1, 1)

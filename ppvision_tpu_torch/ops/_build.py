@@ -92,12 +92,13 @@ def build_all(names=CUDA_SOURCES) -> float:
 
 def ptxas_report(name: str) -> str:
     """The register / shared-memory lines ``ptxas -v`` printed for a
-    source at its last build here ('' if it was built elsewhere)."""
+    source at its last build here, and any note that it serialized the
+    wgmmas (C7513, C7515) ('' if it was built elsewhere)."""
     path = os.path.join(BUILD_DIR, f"{name}.log")
     if not os.path.exists(path):
         return ""
     with open(path) as f:
-        keep = ("registers", "spill", "Compiling entry")
+        keep = ("registers", "spill", "Compiling entry", "C7513", "C7515")
         return "".join(ln for ln in f if any(k in ln for k in keep))
 
 

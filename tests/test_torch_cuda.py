@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
-from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
+from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block, pack_dense_bn
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
 from ppvision_tpu_torch.ops.instats import _launch, _moments_ref, instance_moments
 from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
@@ -58,22 +58,46 @@ def test_fftconv_kernel_matches_plain(dev, b, n, c):
     assert float((got - want).abs().max()) <= 2e-5 * max(1.0, float(want.abs().max()))
 
 
-@pytest.mark.parametrize("f,h", [(128, 64), (256, 64), (256, 32), (256, 4), (128, 5)])
-def test_dense_block_kernel_matches_plain(dev, f, h):
-    rng = np.random.default_rng(1)
+def _dense_block_args(rng, dev, b, h, f):
     half, quarter = f // 2, f // 4
-    x = _randn(rng, (4, h, h, f)).to(dev, torch.bfloat16)
+    x = _randn(rng, (b, h, h, f)).to(dev, torch.bfloat16)
     ks = [
         _randn(rng, s, 1 / math.sqrt(9 * s[2])).to(dev, torch.bfloat16)
         for s in ((3, 3, f, half), (3, 3, half, quarter), (3, 3, quarter, quarter))
     ]
     bns = [(1 + _randn(rng, (c,), 0.1).to(dev), _randn(rng, (c,), 0.1).to(dev)) for c in (f, half, quarter)]
+    return x, ks, bns
+
+
+# Every shape the two paths give the kernel (chip_smoke.DENSEBLOCK_SHAPES:
+# FAN at the served batch of 8, which the interpolation video shares, and
+# at the video's 16), one image, and odd sizes whose tiles are ragged.
+@pytest.mark.parametrize(
+    "b,f,h",
+    [(8, 128, 64), (8, 256, 64), (8, 256, 32), (8, 256, 16), (8, 256, 8), (8, 256, 4),
+     (16, 128, 64), (16, 256, 64), (16, 256, 32), (16, 256, 16), (16, 256, 8), (16, 256, 4),
+     (1, 256, 64), (1, 128, 5), (4, 128, 5), (2, 256, 7), (3, 128, 7)],
+)
+def test_dense_block_kernel_matches_plain(dev, b, f, h):
+    x, ks, bns = _dense_block_args(np.random.default_rng(1), dev, b, h, f)
     before = fused_dense_block.launches
     got = fused_dense_block(x, *ks, *bns).float()
     assert fused_dense_block.launches == before + 1
     want = dense_block_ref(x, *ks, *bns).float()
     # bf16 convs, f32 sums in another order: direct-conv error scale.
     assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("f,h", [(256, 64), (128, 7)])
+def test_dense_block_packed_and_repeated_calls_agree_bit_for_bit(dev, f, h):
+    x, ks, bns = _dense_block_args(np.random.default_rng(2), dev, 8, h, f)
+    packed = [pack_conv3x3_weight(k) for k in ks]
+    bn = pack_dense_bn(bns, f)
+    before = fused_dense_block.launches
+    want = fused_dense_block(x, *ks, *bns)
+    assert torch.equal(fused_dense_block(x, *packed, bn), want)
+    assert torch.equal(fused_dense_block(x, *packed, bn), want)
+    assert fused_dense_block.launches == before + 3
 
 
 # The de-id path's seven shapes; the video path's largest at B = 16, its
@@ -202,8 +226,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros((1, 8, 8, 24), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         conv3x3(x, torch.zeros((3, 3, 24, 16), dtype=torch.bfloat16, device=dev))
-    with pytest.raises(ValueError):
-        fused_dense_block(x.float(), *([None] * 3), *([None] * 3))
+    for bad in (x.float(), torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=dev)):
+        with pytest.raises(ValueError):
+            fused_dense_block(bad, *([None] * 3), *([None] * 3))
     coords = torch.zeros((1, 8, 8, 2), device=dev)
     with pytest.raises(ValueError):
         local_corr(x, x, coords)  # bf16

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 from ppvision_tpu.ops.denseblock import dense_block_ref as jax_dense_block_ref
-from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
+from ppvision_tpu_torch.models.fan import DenseConvBlock
+from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block, pack_dense_bn
+from ppvision_tpu_torch.ops.winograd import pack_conv3x3_weight, unpack_conv3x3_weight
 
 
 def _mk(seed, b, h, f):
@@ -36,8 +38,9 @@ def _torch_args(x, ks, bns, dev="cpu"):
 
 
 # rel < 2e-2: bf16 convs whose f32 sums run in another order, the JAX
-# package's own fused-vs-unfused bound (tests/test_denseblock.py).
-@pytest.mark.parametrize("b,h,f", [(2, 8, 256), (2, 8, 128), (1, 5, 128)])
+# package's own fused-vs-unfused bound (tests/test_denseblock.py).  FAN's
+# smallest block (4^2 at F = 256) and a wider F = 128 image among them.
+@pytest.mark.parametrize("b,h,f", [(2, 8, 256), (2, 8, 128), (1, 5, 128), (2, 4, 256), (1, 16, 128)])
 def test_dense_block_matches_jax(b, h, f):
     x, ks, bns = _mk(0, b, h, f)
     bf = jnp.bfloat16
@@ -59,3 +62,48 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(fused_dense_block(*args), dense_block_ref(*args))
     assert fused_dense_block.launches == before
 
+
+
+@pytest.mark.parametrize("f", [128, 256])
+def test_packed_kernels_round_trip(f):
+    _, ks, _ = _mk(2, 1, 4, f)
+    for k in ks:
+        hwio = torch.from_numpy(k).to(torch.bfloat16)
+        c, kout = hwio.shape[2:]
+        packed = pack_conv3x3_weight(hwio)
+        assert packed.shape == (9, -(-c // 64), kout, 8, 8)
+        assert torch.equal(unpack_conv3x3_weight(packed, c), hwio)
+
+
+def test_packed_arguments_give_the_same_bits():
+    x, ks, bns = _mk(3, 2, 6, 128)
+    x, *rest = _torch_args(x, ks, bns)
+    hwio, pairs = rest[:3], rest[3:]
+    want = fused_dense_block(x, *hwio, *pairs)
+    packed = [pack_conv3x3_weight(k) for k in hwio]
+    assert torch.equal(fused_dense_block(x, *packed, pack_dense_bn(pairs, 128)), want)
+
+
+# DenseConvBlock keeps its kernel arguments (packed weights, BN pack) per
+# version of its weights and BN entries: an in-place edit must reach the
+# output, bit for bit what a module built from the edited state gives.
+@pytest.mark.parametrize("edit", ["conv2.weight", "bn1.running_mean", "bn3.running_var", "bn2.weight"])
+def test_dense_conv_block_follows_in_place_edits(edit):
+    torch.manual_seed(0)
+    blk = DenseConvBlock(128, 128, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn2, blk.bn3):
+            bn.running_mean.normal_()
+            bn.running_var.uniform_(0.5, 2.0)
+            bn.weight.normal_(1.0, 0.1)
+            bn.bias.normal_(0.0, 0.1)
+    x = torch.randn((2, 128, 6, 6)).to(torch.bfloat16)
+    before = blk(x)
+    assert torch.equal(blk(x), before)
+    with torch.no_grad():
+        blk.state_dict(keep_vars=True)[edit].mul_(1.5)
+    after = blk(x)
+    fresh = DenseConvBlock(128, 128, dtype=torch.bfloat16)
+    fresh.load_state_dict(blk.state_dict())
+    assert not torch.equal(after, before)
+    assert torch.equal(after, fresh(x))
