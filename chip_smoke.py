@@ -20,8 +20,10 @@ What it does, in order; any failure raises and exits non-zero:
    conv3x3, instats and denseblock are checked and timed at every shape
    either path gives them, with instats' and denseblock's device
    microseconds, instats' host microseconds a call, and the sums over a
-   served step's 93, 145 and 15 launches; two instats calls, and two
-   denseblock calls, must agree bit for bit; ptxas may not have
+   served step's 93, 145 and 15 launches; corr at each of RAFT's four
+   levels and at a 64^2 map with coords spread over all of it, with its
+   device microseconds and bound at each; two instats, two denseblock
+   and two corr calls must agree bit for bit; ptxas may not have
    serialized any wgmma (C7513, C7515);
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
@@ -44,7 +46,7 @@ What it does, in order; any failure raises and exits non-zero:
    read just after: all five kernels must have run, the correlation
    kernel 4 levels x 12 iterations = 48 times; every instats and
    denseblock shape of both paths must be one that step 3 checked;
-   instats input copies; then the same phase again under
+   instats' and corr's input copies; then the same phase again under
    ``torch.profiler``: its device busy milliseconds and instats' and
    denseblock's shares of them;
 8. RAFT on the card: the alternate path against the dense path at the
@@ -52,8 +54,9 @@ What it does, in order; any failure raises and exits non-zero:
    CPU RAFT (B=1, 128x128, 3 iterations);
 9. times the two RAFT convs it runs as unfold + matmul against cuDNN,
    and prints RAFT pairs/s (B=30, 256x256, 12 iterations; alternate and
-   dense), the device's idle share of a call and the video phase's
-   seconds.
+   dense), the device's idle share of a call, the corr kernel's device
+   milliseconds and launches in an alternate call beside 12 x its four
+   levels' bounds, and the video phase's seconds.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -438,9 +441,25 @@ def corr_grid_dots(torch, coords, r: int, h2: int, w2: int) -> int:
     return int((in_map(coords[..., 0], w2) * in_map(coords[..., 1], h2)).sum())
 
 
-def check_corr(torch, dev) -> dict:
-    """Kernel 5 at RAFT's four level shapes of the video path: B=30 pairs,
-    32x32 queries, C=256, fmap2 32^2 .. 4^2, radius 4."""
+def corr_bound(torch, f1, f2, coords, r: int) -> tuple[float, str]:
+    """fmap1, fmap2, the coords and the output moved once; 2C per in-map
+    grid dot and 4 products + 3 sums (+2 weights) per output."""
+    b, h, w, c = f1.shape
+    k = 2 * r + 1
+    nbytes = 4 * (f1.numel() + f2.numel() + coords.numel() + b * h * w * k * k)
+    ops = 2 * c * corr_grid_dots(torch, coords, r, *f2.shape[1:3]) + 9 * b * h * w * k * k
+    return bound(nbytes, ops, F32_FLOP_S)
+
+
+def check_corr(torch, dev) -> tuple[dict, list[float]]:
+    """Kernel 5 at RAFT's four level shapes of the video path (B=30 pairs,
+    32x32 queries, C=256, fmap2 32^2 .. 4^2, radius 4, coords +-6 px
+    around the grid), and at B=2, 64x64 queries on a 64x64 map with
+    coords over the whole map and r + 2 px past it (a box larger than a
+    block's ring).  Each: error against the plain version, coords + 100
+    exactly 0, the window ms, the profiler's device us and the bound.
+    Two calls agree bit for bit at level 0 and at 64^2.  Returns level
+    0's record and the four levels' bounds (ms)."""
     from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
 
     rng = np.random.default_rng(4)
@@ -448,7 +467,7 @@ def check_corr(torch, dev) -> dict:
     f1 = torch.from_numpy(rng.standard_normal((b, h, h, c), dtype=np.float32)).to(dev)
     ys, xs = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
     grid = np.stack([xs, ys], -1).astype(np.float32)
-    worst = 0.0
+    cases = []
     for lvl in range(RAFT_LEVELS):
         h2 = h >> lvl
         f2 = torch.from_numpy(rng.standard_normal((b, h2, h2, c), dtype=np.float32)).to(dev)
@@ -456,7 +475,13 @@ def check_corr(torch, dev) -> dict:
         # +-6 px: negative fractions and windows over every border.
         co = (grid + rng.uniform(-6, 6, (b, h, h, 2)).astype(np.float32)) / 2**lvl
         co[0, 0, 0], co[0, 0, 1], co[0, 1, 0] = (-0.5, -4.75), (h2 - 1, 0.0), (h2 + 3.5, -5.0)
-        coords = torch.from_numpy(co).to(dev)
+        cases.append((f"level {lvl} B={b} {h}x{h} -> {h2}x{h2}", f1, f2, torch.from_numpy(co).to(dev)))
+    n = 64
+    spread = (rng.standard_normal((2, n, n, c), dtype=np.float32), rng.standard_normal((2, n, n, c), dtype=np.float32),
+              rng.uniform(-(r + 2), n - 1 + r + 2, (2, n, n, 2)).astype(np.float32))
+    cases.append((f"whole-map spread B=2 {n}x{n} -> {n}x{n}", *(torch.from_numpy(t).to(dev) for t in spread)))
+    bounds, worst = [], 0.0
+    for i, (name, f1, f2, coords) in enumerate(cases):
         got = local_corr(f1, f2, coords, r)
         want = local_corr_ref(f1, f2, coords, r)
         far = local_corr(f1, f2, coords + 100.0, r)
@@ -464,30 +489,33 @@ def check_corr(torch, dev) -> dict:
         err = float((got - want).abs().max())
         tol = 1e-5 * max(1.0, float(want.abs().max()))
         far_max = float(far.abs().max())
-        print(f"corr level {lvl} B={b} {h}x{h} -> {h2}x{h2} C={c} r={r}: max_abs_err {err:.3e} "
-              f"(tol {tol:.2e}), coords+100 max {far_max} (must be 0)")
         if not err <= tol:
-            raise AssertionError(f"corr kernel disagrees with its plain version at level {lvl}: {err} > {tol}")
+            raise AssertionError(f"corr kernel disagrees with its plain version at {name}: {err} > {tol}")
         if far_max != 0.0:
-            raise AssertionError(f"corr kernel gives {far_max} for far-out coords, not 0")
-        print(f"corr level {lvl}: {cuda_ms(lambda: local_corr(f1, f2, coords, r)):.4f} ms "
-              f"(plain {cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1):.4f})")
-        if lvl == 0:
-            worst, args = err, (f1, f2, coords)
+            raise AssertionError(f"corr kernel gives {far_max} for far-out coords at {name}, not 0")
+        if i in (0, RAFT_LEVELS) and not torch.equal(local_corr(f1, f2, coords, r), got):
+            raise AssertionError(f"corr kernel: two calls differ at {name}")
+        del want, far
+        ms = cuda_ms(lambda: local_corr(f1, f2, coords, r))
+        dev_us = device_us(lambda: local_corr(f1, f2, coords, r), "corr_band")
+        bms, by = corr_bound(torch, f1, f2, coords, r)
+        if i < RAFT_LEVELS:
+            bounds.append(bms)
+        print(f"corr {name} C={c} r={r}: {ms:.4f} ms, {dev_us:.2f} us on the device (bound {bms:.4f} by {by}); "
+              f"max_abs_err {err:.3e} (tol {tol:.2e}), coords+100 max {far_max} (must be 0)")
+        if i == 0:
+            worst, args, level0 = err, (f1, f2, coords), (ms, bms, by)
     f1, f2, coords = args
-    k = 2 * r + 1
-    nbytes = 4 * (f1.numel() + f2.numel() + coords.numel() + b * h * h * k * k)
-    # 2C per in-map grid dot, and 4 products + 3 sums (+2 weights) per output.
-    ops = 2 * c * corr_grid_dots(torch, coords, r, h, h) + 9 * b * h * h * k * k
-    bms, by = bound(nbytes, ops, F32_FLOP_S)
-    return dict(
+    ms, bms, by = level0
+    record = dict(
         name="corr", route="cuda", source="ppvision_tpu_torch/csrc/corr.cu",
         replaces="ppvision_tpu/ops/corr.py:92", max_abs_err=worst, path="video",
-        ms=cuda_ms(lambda: local_corr(f1, f2, coords, r)),
-        plain_ms=cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1),
+        ms=ms, plain_ms=cuda_ms(lambda: local_corr_ref(f1, f2, coords, r), iters=5, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=[b, h, h, c, r], tolerance="max_abs_err <= 1e-5 * max(1, max|plain|); coords+100 exactly 0",
     )
+    print(f"corr: the four levels' bounds sum to {sum(bounds):.4f} ms an iteration")
+    return record, bounds
 
 
 def record_shapes():
@@ -688,7 +716,7 @@ def video_path(torch, kernels) -> dict:
 
     for fn in kernels.values():
         fn.launches = 0
-    kernels["instats"].copies = 0
+    kernels["instats"].copies = kernels["corr"].copies = 0
     seen, undo = record_shapes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -697,7 +725,8 @@ def video_path(torch, kernels) -> dict:
     undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"video phase: {secs:.2f} s; flow_consistency_epe {score:.6f}; launches {launches}; "
-          f"instats input copies {kernels['instats'].copies}; shapes {({k: dict(v) for k, v in seen.items()})}; "
+          f"instats input copies {kernels['instats'].copies}; corr input copies {kernels['corr'].copies}; "
+          f"shapes {({k: dict(v) for k, v in seen.items()})}; "
           f"write_video wrote a file: {wrote}; interpolation video {video.shape}")
     unchecked = unchecked_shapes(seen)
     if unchecked:
@@ -774,10 +803,12 @@ def raft_matmul_conv(torch) -> None:
               f"cuDNN {cuda_ms(lambda: F.conv2d(x, conv.weight, conv.bias, padding=1)):.4f} ms")
 
 
-def raft_throughput(torch, pairs, card: str, video_secs: float) -> None:
+def raft_throughput(torch, pairs, card: str, video_secs: float, corr_bounds: list[float]) -> None:
     """RAFT pairs/s at the video's batch (B=30, 256^2, 12 iterations) on
     the alternate (kernel 5) and the dense path, and the device's busy
-    share of one profiled call."""
+    share of one profiled call; on the alternate path, the corr kernel's
+    device ms and launches in that call beside 12 x the four levels'
+    bounds."""
     from ppvision_tpu_torch.models.raft import build_raft
 
     f1, f2 = (255.0 * p.cuda() for p in pairs)
@@ -790,11 +821,19 @@ def raft_throughput(torch, pairs, card: str, video_secs: float) -> None:
             torch.cuda.synchronize()
         events = prof.key_averages()
         busy = sum(e.self_device_time_total for e in events) / 1e3
-        print(json.dumps({
+        corr = [e for e in events if "corr_band" in e.key]
+        line = {
             "raft_pairs_s": b / (ms / 1e3), "alternate_corr": alt, "B": b, "img": VIDEO_IMG,
             "iters": RAFT_ITERS, "ms_per_call": ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / ms), "video_phase_s": video_secs, "card": card,
-        }))
+        }
+        if alt:
+            line.update(corr_device_ms=sum(e.self_device_time_total for e in corr) / 1e3,
+                        corr_launches=sum(e.count for e in corr),
+                        corr_bound_ms=RAFT_ITERS * sum(corr_bounds))
+            if line["corr_launches"] != RAFT_LEVELS * RAFT_ITERS:
+                print(f"corr: the profiler saw {line['corr_launches']} launches, not {RAFT_LEVELS * RAFT_ITERS}")
+        print(json.dumps(line))
         print(events.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
 
 
@@ -824,8 +863,9 @@ def main(argv=None) -> int:
         if "C7513" in report or "C7515" in report:
             raise AssertionError(f"ptxas serialized the wgmmas of csrc/{name}.cu")
 
+    corr_record, corr_bounds = check_corr(torch, dev)
     records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
-               *check_instats(torch, dev), *check_conv3x3(torch, dev), check_corr(torch, dev)]
+               *check_instats(torch, dev), *check_conv3x3(torch, dev), corr_record]
     for r in records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -835,7 +875,7 @@ def main(argv=None) -> int:
     video = video_path(torch, KERNELS)
     raft_checks(torch, video["pairs"])
     raft_matmul_conv(torch)
-    raft_throughput(torch, video["pairs"], card, video["seconds"])
+    raft_throughput(torch, video["pairs"], card, video["seconds"], corr_bounds)
 
     # A record at a de-id shape takes its launches from the served run; at
     # a video shape (fftconv at 256^2, corr), from the video path.

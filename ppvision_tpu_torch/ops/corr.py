@@ -13,6 +13,10 @@ outside the map, in true f32, (dy, dx) y-major.
   CPU tensor it runs :func:`local_corr_ref`.  Its backward replays
   autograd through :func:`local_corr_ref`, as the JAX package's
   ``custom_vjp`` replays ``local_corr_xla``: there is no backward kernel.
+  ``local_corr.launches`` counts kernel launches, ``local_corr.copies``
+  the CUDA inputs that had to be made contiguous first.
+- :func:`plan_corr`: the kernel's band of queries a block and its box
+  ring, from the shape alone.
 - :func:`alternate_corr_lookup`: the per-level composition of the
   reference's ``AlternateCorrBlock``.
 """
@@ -20,16 +24,18 @@ outside the map, in true f32, (dy, dx) y-major.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .image import avg_pool_2x
 
-__all__ = ["alternate_corr_lookup", "local_corr", "local_corr_ref"]
+__all__ = ["CorrPlan", "alternate_corr_lookup", "local_corr", "local_corr_ref", "plan_corr"]
 
-_SIGS = {"local_corr": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+_SIGS = {"local_corr": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 
 
 def local_corr_ref(
@@ -65,8 +71,61 @@ def local_corr_ref(
     )
 
 
-def _launch(fmap1, fmap2, coords, radius: int) -> torch.Tensor:
-    """The CUDA kernel, after checking what it takes."""
+# The kernel's design constants (csrc/corr.cu): threads a block, window
+# points a lane at most; the card's SMs, the shared memory a block may
+# take and an SM has.
+_THREADS, _POINTS = 1024, 13
+_SMS = 132
+_SMEM_MAX, _SMEM_SM = 232448, 233472
+
+
+class CorrPlan(NamedTuple):
+    """qb queries a block (a band of consecutive queries of one image), cw
+    channels a step, cap 16-byte units of fmap2 box a ring stage, and the
+    block's threads and dynamic shared memory bytes as ``csrc/corr.cu``
+    lays them out."""
+
+    qb: int
+    cw: int
+    cap: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_corr(batch: int, hw: int, c: int, h2: int, w2: int, radius: int) -> CorrPlan:
+    """The kernel's plan from the shape alone.  A query takes a quarter
+    warp of lanes for each 104 of its (2r + 2)^2 window points, a block at
+    most 1024 threads: the fewest waves of one block an SM that hold the
+    queries, then the most blocks an image those waves hold, so that the
+    bands are as short as the waves allow.  Then the widest channel step
+    (16 .. 512, at most C) at which each of the ring's two stages holds
+    the whole map; where none does, 16 channels and a box as large as
+    shared memory allows."""
+    k1 = 2 * radius + 2
+    lanes = 8 * -(-k1 * k1 // (8 * _POINTS))
+    least = -(-hw // (_THREADS // lanes))
+    waves = -(-batch * least // _SMS)
+    qb = -(-hw // min(hw, max(least, _SMS * waves // batch)))
+    threads = -(-qb * lanes // 32) * 32
+    header = (4 + 4 * qb + 3) // 4 * 4
+    budget = min(_SMEM_MAX, _SMEM_SM // max(1, _THREADS // threads) - 1024) - 4 * header
+
+    def units(cw: int) -> int:  # a stage: the band's points, a zero point, the whole map's rows
+        return (qb + 1) * (cw // 4 + 1) + h2 * (w2 * (cw // 4 + 1) + 7)
+
+    cw = 16
+    while 2 * cw <= -(-c // 16) * 16 and 32 * units(2 * cw) <= budget:
+        cw *= 2
+    pu = cw // 4 + 1
+    cap = min(units(cw), budget // 32) - (qb + 1) * pu
+    floats = header + max(8 * ((qb + 1) * pu + cap), qb * (k1 * k1 + 1))
+    return CorrPlan(qb, cw, cap, threads, 4 * floats)
+
+
+def _launch(fmap1, fmap2, coords, radius: int, plan: CorrPlan | None = None) -> torch.Tensor:
+    """The CUDA kernel, after checking what it takes; ``plan`` defaults
+    to :func:`plan_corr`'s."""
     if fmap1.ndim != 4 or fmap2.ndim != 4 or coords.ndim != 4:
         raise ValueError("corr kernel takes NHWC fmap1, fmap2 and (B, H, W, 2) coords")
     b, h, w, c = fmap1.shape
@@ -78,16 +137,26 @@ def _launch(fmap1, fmap2, coords, radius: int) -> torch.Tensor:
         )
     if c % 4 != 0 or not 0 < c <= 512 or not 0 <= radius <= 16:
         raise ValueError(f"corr kernel takes C % 4 = 0, C <= 512 and radius <= 16; got C={c}, r={radius}")
+    if not (0 < b <= 65535 and h * w > 0 and h2 * w2 > 0):
+        raise ValueError(f"corr kernel takes 1..65535 images and non-empty maps; got {b}, {h}x{w}, {h2}x{w2}")
     for t in (fmap1, fmap2, coords):
         if t.dtype != torch.float32 or t.device != fmap1.device:
             raise ValueError("corr kernel takes float32 tensors on one CUDA device")
-    fmap1, fmap2, coords = fmap1.contiguous(), fmap2.contiguous(), coords.contiguous()
+    ins = []
+    for t, align in ((fmap1, 16), (fmap2, 16), (coords, 8)):  # float4 and float2 reads
+        if not t.is_contiguous():
+            local_corr.copies += 1
+            t = t.contiguous()
+        if t.data_ptr() % align:
+            raise ValueError(f"corr kernel takes fmap1 and fmap2 16-byte aligned, coords 8; got {t.data_ptr()}")
+        ins.append(t)
+    plan = plan or plan_corr(b, h * w, c, h2, w2, radius)
     k = 2 * radius + 1
     out = torch.empty((b, h, w, k * k), dtype=torch.float32, device=fmap1.device)
     lib = _build.load("corr", _SIGS)
     err = lib.local_corr(
-        fmap1.data_ptr(), fmap2.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        b, h * w, h2, w2, c, radius, torch.cuda.current_stream(fmap1.device).cuda_stream,
+        *(t.data_ptr() for t in ins), out.data_ptr(), b, h * w, h2, w2, c, radius, plan.qb, plan.cw, plan.cap,
+        torch.cuda.current_stream(fmap1.device).cuda_stream,
     )
     _build.check(lib, err, "local_corr")
     local_corr.launches += 1
@@ -125,6 +194,7 @@ def local_corr(
 
 
 local_corr.launches = 0
+local_corr.copies = 0
 
 
 def alternate_corr_lookup(

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from ppvision_tpu.ops import corr as jcorr
-from ppvision_tpu_torch.ops.corr import alternate_corr_lookup, local_corr, local_corr_ref
+from ppvision_tpu_torch.ops.corr import alternate_corr_lookup, local_corr, local_corr_ref, plan_corr
 
 # Both sides are f32 dot products of C terms summed in another order, then
 # the same four bilinear products: the error scale is a few f32 ulps of the
@@ -53,6 +53,51 @@ def test_local_corr_ref_matches_xla(case):
     got = _port(f1, f2, coords, r)
     assert got.shape == want.shape == (b, h, w, (2 * r + 1) ** 2)
     _close(got, want)
+
+
+def test_local_corr_ref_matches_xla_at_the_kernels_width():
+    """C = 256 and r = 4, as RAFT runs the kernel, on a 4x4 map (level
+    3's case: at most 16 of a query's 100 grid points in the map)."""
+    f1, f2, coords = _inputs(9, 2, 4, 4, 256, 4, 4, 3.0)
+    want = np.asarray(jcorr.local_corr_xla(jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(coords), 4))
+    _close(_port(f1, f2, coords, 4), want)
+
+
+# (B, H*W, C, H2, W2, r) the kernel is planned for: the video path's four
+# levels (B = 30 pairs at 256^2, B = 2 and 1 in RAFT's checks), RAFT at
+# 64^2 and 128^2, and the card tests' shapes.
+PLANNED = [
+    *[(30, 1024, 256, 32 >> l, 32 >> l, 4) for l in range(4)],
+    *[(2, 1024, 256, 32 >> l, 32 >> l, 4) for l in range(4)],
+    *[(1, 256, 256, 16 >> l, 16 >> l, 4) for l in range(4)],
+    *[(2, 64, 256, 8 >> l, 8 >> l, 4) for l in range(3)],
+    (2, 4096, 256, 64, 64, 4), (4, 1024, 256, 16, 16, 4), (2, 256, 64, 16, 16, 0), (2, 256, 64, 16, 16, 1),
+    (1, 144, 32, 12, 12, 16), (2, 63, 128, 9, 7, 16), (3, 256, 4, 8, 8, 4), (2, 256, 128, 16, 16, 4),
+    (2, 256, 512, 16, 16, 4), (2, 120, 256, 3, 5, 4), (1, 64, 36, 2, 7, 3), (2, 65, 20, 6, 11, 2),
+    (8, 4096, 512, 64, 64, 16), (1, 1, 4, 1, 1, 0),
+]
+
+
+@pytest.mark.parametrize("shape", PLANNED)
+def test_plan_corr_fits_and_covers_every_query_once(shape):
+    b, hw, c, h2, w2, r = shape
+    plan = plan_corr(*shape)
+    k1 = 2 * r + 2
+    lanes = 8 * -(-k1 * k1 // 104)  # a quarter-warp for each 104 window points
+    assert plan.smem <= 227 * 1024
+    assert plan.qb * lanes <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert 16 <= plan.cw <= max(16, -(-c // 16) * 16) and plan.cw & (plan.cw - 1) == 0
+    pu = plan.cw // 4 + 1
+    assert plan.cap >= pu + 7  # a tile holds at least one point of a row
+    # The shared memory holds the header, two ring stages and the scores.
+    assert 4 * (4 + 4 * plan.qb) + 32 * ((plan.qb + 1) * pu + plan.cap) <= plan.smem + 16
+    assert 4 * (4 + 4 * plan.qb) + 4 * plan.qb * (k1 * k1 + 1) <= plan.smem + 16
+    if plan.cw > 16:  # a channel step wider than 16 only where the whole map fits a stage
+        assert plan.cap >= h2 * (w2 * pu + 7)
+    seen = np.zeros(hw, int)
+    for q0 in range(0, hw, plan.qb):  # the blocks of one image, grid.x = ceil(HW / qb)
+        seen[q0:min(q0 + plan.qb, hw)] += 1
+    assert (seen == 1).all() and -(-hw // plan.qb) * plan.qb < hw + plan.qb
 
 
 def test_local_corr_ref_matches_pallas_interpret():

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref
+from ppvision_tpu_torch.ops.corr import _launch as _corr_launch
+from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref, plan_corr
 from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block, pack_dense_bn
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
 from ppvision_tpu_torch.ops.instats import _launch, _moments_ref, instance_moments
@@ -186,13 +187,21 @@ def test_conv3x3_packed_weight_is_bit_identical(dev):
     assert torch.equal(conv3x3(x, pack_conv3x3_weight(ker)), conv3x3(x, ker))
 
 
-def _corr_inputs(rng, b, h, h2, c, spread):
-    f1 = _randn(rng, (b, h, h, c))
-    f2 = _randn(rng, (b, h2, h2, c))
-    ys, xs = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
-    grid = np.stack([xs, ys], -1) * (h2 / h)
-    coords = torch.from_numpy((grid + rng.uniform(-spread, spread, (b, h, h, 2))).astype(np.float32))
+def _corr_inputs(rng, b, h, h2, c, spread, w=None, w2=None):
+    """fmap1 (b, h, w, c), fmap2 (b, h2, w2, c) and coords on fmap2's
+    grid scaled to the queries' plus a uniform +-spread px."""
+    w, w2 = w or h, w2 or h2
+    f1 = _randn(rng, (b, h, w, c))
+    f2 = _randn(rng, (b, h2, w2, c))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    grid = np.stack([xs * (w2 / w), ys * (h2 / h)], -1)
+    coords = torch.from_numpy((grid + rng.uniform(-spread, spread, (b, h, w, 2))).astype(np.float32))
     return f1, f2, coords
+
+
+def _corr_close(got, want):
+    # f32 dots of C terms summed in another order (no TF32 on either side).
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
 
 
 @pytest.mark.parametrize("h2", [32, 16, 8, 4])  # RAFT's four levels at 256^2
@@ -202,11 +211,63 @@ def test_corr_kernel_matches_plain(dev, h2):
     before = local_corr.launches
     got = local_corr(f1, f2, coords, 4)
     assert local_corr.launches == before + 1
-    want = local_corr_ref(f1, f2, coords, 4)
-    # f32 dots of 256 terms summed in another order (no TF32 on either side).
-    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    _corr_close(got, local_corr_ref(f1, f2, coords, 4))
     for far in (coords + 100.0, coords - 100.0):
         assert torch.equal(local_corr(f1, f2, far, 4), torch.zeros_like(got))
+
+
+# (b, h, w, h2, w2, c, r, spread): radii 0, 1, 4 and 16; C = 4 .. 512;
+# maps smaller than the window with H2 != W2; a band that is not whole
+# rows; and coords over the whole 64^2 map and r + 2 px past it, whose
+# box is larger than a block's ring (it is walked in tiles).
+CORR_CASES = [
+    (2, 16, 16, 16, 16, 64, 0, 3.0), (2, 16, 16, 16, 16, 64, 1, 3.0),
+    (1, 12, 12, 12, 12, 32, 16, 20.0), (2, 9, 7, 9, 7, 128, 16, 4.0),
+    (3, 16, 16, 8, 8, 4, 4, 5.0), (2, 16, 16, 16, 16, 128, 4, 5.0), (2, 16, 16, 16, 16, 512, 4, 5.0),
+    (2, 10, 12, 3, 5, 256, 4, 6.0), (1, 8, 8, 2, 7, 36, 3, 4.0), (2, 5, 13, 6, 11, 20, 2, 2.0),
+]
+
+
+@pytest.mark.parametrize("case", CORR_CASES)
+def test_corr_kernel_matches_plain_at_other_shapes(dev, case):
+    b, h, w, h2, w2, c, r, spread = case
+    rng = np.random.default_rng(9)
+    f1, f2, coords = (t.to(dev) for t in _corr_inputs(rng, b, h, h2, c, spread, w, w2))
+    _corr_close(local_corr(f1, f2, coords, r), local_corr_ref(f1, f2, coords, r))
+
+
+def _whole_map_spread(rng, r=4):
+    """B=2, 64x64 queries on a 64x64 map at C=256, coords uniform over the
+    map and r + 2 px beyond each border."""
+    f1, f2, _ = _corr_inputs(rng, 2, 64, 64, 256, 0.0)
+    coords = torch.from_numpy(rng.uniform(-(r + 2), 63 + r + 2, (2, 64, 64, 2)).astype(np.float32))
+    return f1, f2, coords
+
+
+def test_corr_kernel_whole_map_spread(dev):
+    f1, f2, coords = (t.to(dev) for t in _whole_map_spread(np.random.default_rng(10)))
+    plan = plan_corr(2, 64 * 64, 256, 64, 64, 4)
+    assert plan.cap < 64 * 64 * (plan.cw // 4 + 1)  # the box cannot be staged whole
+    _corr_close(local_corr(f1, f2, coords, 4), local_corr_ref(f1, f2, coords, 4))
+
+
+@pytest.mark.parametrize("cw,cap", [(16, 12), (16, 30), (16, 200), (32, 100), (64, 800)])
+def test_corr_kernel_takes_any_plan(dev, cw, cap):
+    """Channel steps of 16-64 and rings smaller than a box row (tiles of
+    row pieces) or than the box, through ``_launch`` with an explicit
+    plan (bands of 40 queries, which end mid-row)."""
+    rng = np.random.default_rng(11)
+    f1, f2, coords = (t.to(dev) for t in _corr_inputs(rng, 2, 16, 16, 64, 4.0))
+    plan = plan_corr(2, 256, 64, 16, 16, 4)._replace(qb=40, cw=cw, cap=cap)
+    _corr_close(_corr_launch(f1, f2, coords, 4, plan), local_corr_ref(f1, f2, coords, 4))
+
+
+def test_corr_kernel_is_bitwise_repeatable(dev):
+    rng = np.random.default_rng(12)
+    f1, f2, coords = (t.to(dev) for t in _corr_inputs(rng, 30, 32, 32, 256, 6.0))
+    assert torch.equal(local_corr(f1, f2, coords, 4), local_corr(f1, f2, coords, 4))
+    f1, f2, coords = (t.to(dev) for t in _whole_map_spread(rng))
+    assert torch.equal(local_corr(f1, f2, coords, 4), local_corr(f1, f2, coords, 4))
 
 
 def test_corr_backward_on_the_card_matches_cpu(dev):
@@ -234,6 +295,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         local_corr(x, x, coords)  # bf16
     with pytest.raises(ValueError):
         local_corr(x.float()[..., :6], x.float()[..., :6], coords)  # C % 4 != 0
+    wide = torch.zeros((1, 8, 8, 516), device=dev)
+    with pytest.raises(ValueError):
+        local_corr(wide, wide, coords)  # C > 512
 
 
 def test_raft_matmul_conv_matches_cudnn(dev):
