@@ -56,7 +56,20 @@ What it does, in order; any failure raises and exits non-zero:
    and prints RAFT pairs/s (B=30, 256x256, 12 iterations; alternate and
    dense), the device's idle share of a call, the corr kernel's device
    milliseconds and launches in an alternate call beside 12 x its four
-   levels' bounds, and the video phase's seconds.
+   levels' bounds, and the video phase's seconds;
+10. the conv3x3 and instats autograd Functions' gradients at every train
+   shape against the plain versions' autograd, R1's second order through
+   a kernel conv included;
+11. the train phase at the reference recipe (``FaceDeIdConfig()``:
+   256x256, full width, bf16, B = 4, LPIPS, RAFT flow at 20 iterations):
+   3 steps on seeded batches, each step's losses, seconds and launches
+   (the counts set to 0 before each step), checks that every loss is
+   finite, every net moved and each EMA less than its net, that conv3x3,
+   instats, fftconv and denseblock launched in every step, and that no
+   conv3x3, instats or denseblock shape went unchecked; one more step
+   under ``torch.profiler`` for the device's busy share and a breakdown;
+12. one 64x64 train step on the card against the port's CPU path, in f32
+   and in bf16.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +99,8 @@ RAFT_ITERS = 12
 RAFT_LEVELS = 4  # run_video's rule at 256^2: min(4, log2(256 / 8) + 1)
 RAFT_RADIUS = 4
 OUT_DIR = "chip_smoke_out"  # videos, where the machine has ffmpeg (listed in .gitignore)
+TRAIN_B = 4  # TrainConfig().batch_size: the reference recipe's batch
+TRAIN_STEPS = 3
 
 
 def card_line() -> str:
@@ -132,13 +147,14 @@ def rfft_conv(img, ore, oim):
 
 
 def check_fftconv(torch, dev) -> list[dict]:
-    """Kernel 1 at both paths' shapes: the de-id camera (B=8, 128^2) and
-    the video camera (B=16, 256^2); one record each."""
+    """Kernel 1 at the paths' shapes: the de-id camera (B=8, 128^2), the
+    video camera (B=16, 256^2) and the train camera (B=4, 256^2); one
+    record each."""
     from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
     from ppvision_tpu_torch.optics.camera import Camera, CameraSpec, compute_psf, make_camera_constants
 
     records = []
-    for n, b, path in ((IMG, SERVE_BATCH, "deid"), (VIDEO_IMG, VIDEO_T, "video")):
+    for n, b, path in ((IMG, SERVE_BATCH, "deid"), (VIDEO_IMG, VIDEO_T, "video"), (VIDEO_IMG, TRAIN_B, "train")):
         spec = CameraSpec(n=n)
         psf = compute_psf(Camera(spec).to(dev), make_camera_constants(spec, dev)).psf
         kern = torch.roll(psf, (-(n // 2), -(n // 2)), (0, 1))
@@ -180,12 +196,15 @@ def denseblock_bound(x, ks) -> tuple[float, str]:
 # on the step's 8 sources, the stem's 128-wide block and top_m_0 at 64^2,
 # the depth-4 hourglass's 13 blocks at 64^2 .. 4^2.  The video phase runs
 # FAN on its 16 frames and on the interpolation video's 8 sources (the
-# served shapes); none of that is in the served step.  The served run and
-# the video phase check that they take no other shape.
+# served shapes), and the train phase three FANs a step at its batch of 4;
+# none of that is in the served step.  The served run, the video and the
+# train phase check that they take no other shape.
 DENSEBLOCK_SHAPES = {
     (8, 64, 128): 1, (8, 64, 256): 2, (8, 32, 256): 3, (8, 16, 256): 3, (8, 8, 256): 3, (8, 4, 256): 3,
     (VIDEO_T, 64, 128): 0, (VIDEO_T, 64, 256): 0, (VIDEO_T, 32, 256): 0, (VIDEO_T, 16, 256): 0,
     (VIDEO_T, 8, 256): 0, (VIDEO_T, 4, 256): 0,
+    (TRAIN_B, 64, 128): 0, (TRAIN_B, 64, 256): 0, (TRAIN_B, 32, 256): 0, (TRAIN_B, 16, 256): 0,
+    (TRAIN_B, 8, 256): 0, (TRAIN_B, 4, 256): 0,
 }
 DENSEBLOCK_PER_STEP = sum(DENSEBLOCK_SHAPES.values())  # 15
 
@@ -199,17 +218,18 @@ def fan_args(ks, bns) -> tuple:
     return (*[pack_conv3x3_weight(k) for k in ks], pack_dense_bn(bns, ks[0].shape[2]))
 
 
-def check_denseblock(torch, dev, kernel_args=fan_args) -> dict:
+def check_denseblock(torch, dev, kernel_args=fan_args) -> list[dict]:
     """Kernel 2 at every shape of ``DENSEBLOCK_SHAPES``, called with
     ``kernel_args(ks, bns)`` after x: error against the plain version
     (the cuDNN chain), the kernel's time in a 20-call window and on the
     device (its passes summed) beside the chain's and the bound, one line
     each, and the sums over a served step's 15 launches.  At 8x64x64x256
-    two calls and the HWIO call must agree bit for bit; one record there."""
+    two calls and the HWIO call must agree bit for bit; one record there
+    and one at the train phase's 4x64x64x256."""
     from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block
 
     g = torch.Generator(device=dev).manual_seed(1)
-    step = {"ms": 0.0, "device_ms": 0.0, "chain_ms": 0.0}
+    records, step = [], {"ms": 0.0, "device_ms": 0.0, "chain_ms": 0.0}
     for (b, h, f), per_step in DENSEBLOCK_SHAPES.items():
         x = torch.randn((b, h, h, f), generator=g, device=dev, dtype=torch.bfloat16)
         ks = [(torch.randn(s, generator=g, device=dev) / math.sqrt(9 * s[2])).to(torch.bfloat16)
@@ -239,15 +259,17 @@ def check_denseblock(torch, dev, kernel_args=fan_args) -> dict:
         if (b, h, f) == (SERVE_BATCH, 64, 256):
             if not (torch.equal(fused_dense_block(x, *args), out) and torch.equal(fused_dense_block(x, *ks, *bns), out)):
                 raise AssertionError("denseblock: two calls, or the packed and HWIO calls, differ")
-            record = dict(
+        path = {(SERVE_BATCH, 64, 256): "deid", (TRAIN_B, 64, 256): "train"}.get((b, h, f))
+        if path is not None:
+            records.append(dict(
                 name="denseblock", route="cuda", source="ppvision_tpu_torch/csrc/denseblock.cu",
-                replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=err, path="deid",
+                replaces="ppvision_tpu/ops/denseblock.py:124", max_abs_err=err, path=path,
                 ms=row["ms"], plain_ms=row["chain_ms"], bound_ms=bms, bound_by=by, library_ms=None,
                 shape=[b, h, h, f], tolerance="max_abs_err / max|plain| < 2e-2 (bf16 conv error scale)",
-            )
+            ))
     print(f"denseblock over a served step's {DENSEBLOCK_PER_STEP} launches: kernel {step['ms']:.4f} ms, "
           f"{step['device_ms']:.4f} ms on the device, cuDNN chain {step['chain_ms']:.4f} ms")
-    return record
+    return records
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -291,8 +313,9 @@ def instats_bound(x) -> tuple[float, str]:
 # 10 styles: encode once, decode once a style).  The 256^2 generator
 # runs in the video phase: de-id at the video's batch of 16, and the
 # style-interpolation video, which encodes its 8 sources and decodes
-# them under 31 styles at once (B = 248); none of that is in the served
-# step.  The served run and the video phase check that they take no
+# them under 31 styles at once (B = 248); the train phase runs it at its
+# batch of 4, forward and backward; none of that is in the served step.
+# The served run, the video and the train phase check that they take no
 # other shape.
 INTERP_B = 8 * 31
 INSTATS_SHAPES = {
@@ -304,6 +327,9 @@ INSTATS_SHAPES = {
     (8, 256, 64): 0, (8, 128, 64): 0,
     (INTERP_B, 256, 64): 0, (INTERP_B, 128, 128): 0, (INTERP_B, 64, 256): 0, (INTERP_B, 32, 512): 0,
     (INTERP_B, 16, 512): 0, (INTERP_B, 8, 512): 0,
+    (TRAIN_B, 256, 64): 0, (TRAIN_B, 128, 64): 0, (TRAIN_B, 128, 128): 0, (TRAIN_B, 64, 128): 0,
+    (TRAIN_B, 64, 256): 0, (TRAIN_B, 32, 256): 0, (TRAIN_B, 32, 512): 0, (TRAIN_B, 16, 512): 0,
+    (TRAIN_B, 8, 512): 0,
 }
 INSTATS_PER_STEP = sum(INSTATS_SHAPES.values())  # 145
 
@@ -341,7 +367,7 @@ def check_instats(torch, dev) -> list[dict]:
         print(f"instats B={b} {h}x{h}x{c}: {row['ms']:.4f} ms, {row['device_ms'] * 1e3:.2f} us on the device "
               f"(var_mean {row['var_mean_ms']:.4f}, bound {bms:.4f} by {by}; host {us:.2f} us a call; "
               f"{per_step} a served step); max_abs_err {err:.3e} (tol 1e-5)")
-        path = {(SERVE_BATCH, 128, 128): "deid", (VIDEO_T, 256, 64): "video"}.get((b, h, c))
+        path = {(SERVE_BATCH, 128, 128): "deid", (VIDEO_T, 256, 64): "video", (TRAIN_B, 256, 64): "train"}.get((b, h, c))
         if path == "video":
             again = instance_moments(x)
             if not (torch.equal(again[0], m) and torch.equal(again[1], m2)):
@@ -371,17 +397,23 @@ def conv3x3_bound(x, w) -> tuple[float, str]:
 # 32^2, 16^2, 5 x 8^2), the style encoder 5 at batch R = 10 (64^2 .. 4^2;
 # the first four counted at the B = 8 shape of the same H, C, K).  The
 # 256^2 generator's new shapes run at the video's batch of 16 and are
-# not in the served step.
+# not in the served step.  The train phase runs the 256^2 generator, the
+# style encoder and the discriminator at its batch of 4, and checks that
+# it gives no other shape.
 CONV3X3_SHAPES = {
     (8, 64, 128, 256): 2, (8, 32, 256, 512): 2, (8, 16, 512, 512): 12, (8, 8, 512, 512): 46,
     (8, 128, 128, 128): 10, (8, 64, 256, 256): 10, (8, 32, 512, 512): 10, (10, 4, 512, 512): 1,
     (VIDEO_T, 256, 64, 64): 0, (VIDEO_T, 128, 64, 128): 0, (VIDEO_T, 128, 128, 128): 0,
+    (TRAIN_B, 256, 64, 64): 0, (TRAIN_B, 128, 64, 128): 0, (TRAIN_B, 128, 128, 128): 0,
+    (TRAIN_B, 64, 128, 256): 0, (TRAIN_B, 64, 256, 256): 0, (TRAIN_B, 32, 256, 512): 0,
+    (TRAIN_B, 32, 512, 512): 0, (TRAIN_B, 16, 512, 512): 0, (TRAIN_B, 8, 512, 512): 0,
+    (TRAIN_B, 4, 512, 512): 0,
 }
 CONV3X3_PER_STEP = sum(CONV3X3_SHAPES.values())  # 93
 
 
 def check_conv3x3(torch, dev) -> list[dict]:
-    """Kernel 4 at all eleven path shapes: error against the plain
+    """Kernel 4 at every shape of ``CONV3X3_SHAPES``: error against the plain
     version, the kernel's time in a 20-call window and on the device
     beside ``F.conv2d`` (channels_last) and the bound, one line each, and
     the sums over a served step's 93 launches.  One record at each path's
@@ -415,7 +447,8 @@ def check_conv3x3(torch, dev) -> list[dict]:
         print(f"conv3x3 B={b} {h}x{h} {c}->{k}: {ms:.4f} ms, {dev_ms * 1e3:.2f} us on the device (F.conv2d "
               f"{lib_ms:.4f}, bound {bms:.4f} by {by}; {per_step} a served step); max_abs_err {err:.3e} "
               f"rel {rel:.3e} (tol rel 2e-2)")
-        path = {(8, 128, 128, 128): "deid", (VIDEO_T, 256, 64, 64): "video"}.get((b, h, c, k))
+        path = {(8, 128, 128, 128): "deid", (VIDEO_T, 256, 64, 64): "video",
+                (TRAIN_B, 256, 64, 64): "train"}.get((b, h, c, k))
         if path is not None:
             records.append(dict(
                 name="conv3x3", route="cuda", source="ppvision_tpu_torch/csrc/winograd.cu",
@@ -519,20 +552,26 @@ def check_corr(torch, dev) -> tuple[dict, list[float]]:
 
 
 def record_shapes():
-    """Wrap the names ``models/stargan.py`` calls instats by and
-    ``models/fan.py`` calls denseblock by, so that every call's (B, H, W,
-    C, dtype) is counted; returns ({kernel: counts}, undo)."""
+    """Wrap the names ``models/stargan.py`` calls instats and conv3x3 by
+    and ``models/fan.py`` calls denseblock by, so that every call's (B, H,
+    W, C, dtype) is counted (conv3x3's with its K before the dtype);
+    returns ({kernel: counts}, undo)."""
     import collections
 
     from ppvision_tpu_torch.models import fan, stargan
 
-    names = {"instats": (stargan, "instance_moments"), "denseblock": (fan, "fused_dense_block")}
+    names = {"instats": (stargan, "instance_moments"), "denseblock": (fan, "fused_dense_block"),
+             "conv3x3": (stargan, "conv3x3")}
     seen = {k: collections.Counter() for k in names}
     inner = {k: getattr(mod, fn) for k, (mod, fn) in names.items()}
 
     def spy(kernel):
         def call(x, *args):
-            seen[kernel][(*x.shape, str(x.dtype).removeprefix("torch."))] += 1
+            shape = tuple(x.shape)
+            if kernel == "conv3x3":
+                w = args[-1] if args[-1] is not None else args[0]
+                shape += (w.shape[2] if w.ndim == 5 else w.shape[-1],)
+            seen[kernel][(*shape, str(x.dtype).removeprefix("torch."))] += 1
             return inner[kernel](x, *args)
 
         return call
@@ -547,15 +586,16 @@ def record_shapes():
     return seen, undo
 
 
-# The shape tables the spies' counts are held to: (B, H, C) -> launches a step.
-SHAPE_TABLES = {"instats": INSTATS_SHAPES, "denseblock": DENSEBLOCK_SHAPES}
+# The shape tables the spies' counts are held to: (B, H, C[, K]) -> launches a step.
+SHAPE_TABLES = {"instats": INSTATS_SHAPES, "denseblock": DENSEBLOCK_SHAPES, "conv3x3": CONV3X3_SHAPES}
 
 
-def unchecked_shapes(seen) -> list:
-    """The shapes in ``seen`` that ``check_instats`` and
-    ``check_denseblock`` did not check."""
-    return [(kernel, k) for kernel, counts in seen.items() for k in counts
-            if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], k[3]) not in SHAPE_TABLES[kernel]]
+def unchecked_shapes(seen, kernels=("instats", "denseblock")) -> list:
+    """The shapes in ``seen`` of ``kernels`` that their checks
+    (``check_instats``, ``check_denseblock``, ``check_conv3x3``) did not
+    check."""
+    return [(kernel, k) for kernel in kernels for k in seen[kernel]
+            if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], *k[3:-1]) not in SHAPE_TABLES[kernel]]
 
 
 def seeded_inputs(b: int, r: int):
@@ -608,7 +648,8 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     if launches["conv3x3"] != steps * CONV3X3_PER_STEP:
         raise AssertionError(f"conv3x3 launched {launches['conv3x3']} times over {steps} served steps, "
                              f"not {CONV3X3_PER_STEP} a step")
-    for kernel, table in SHAPE_TABLES.items():
+    for kernel in ("instats", "denseblock"):
+        table = SHAPE_TABLES[kernel]
         per_step = sum(table.values())
         if launches[kernel] != steps * per_step:
             raise AssertionError(f"{kernel} launched {launches[kernel]} times over {steps} served steps, "
@@ -837,6 +878,301 @@ def raft_throughput(torch, pairs, card: str, video_secs: float, corr_bounds: lis
         print(events.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
 
 
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (the bf16 kernels' error scale)."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-12)
+
+
+def check_train_grads(torch, dev) -> None:
+    """The conv3x3 and instats Functions' gradients at every train shape
+    against the plain versions' autograd on the same inputs: dx and dw of
+    sum(g * conv(x, w)), and R1's second order through a kernel conv,
+    d/dw of |d/dx sum(g * leaky_relu(conv(x, w)))|^2 (there the sign
+    pattern comes from each side's own forward).  Each within 2e-2 of
+    its output scale; each kernel output must carry a grad_fn."""
+    import torch.nn.functional as F
+
+    from ppvision_tpu_torch.ops.instats import _moments_ref, instance_moments
+    from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"conv3x3 dx": 0.0, "conv3x3 dw": 0.0, "conv3x3 R1 dw": 0.0, "instats dx": 0.0}
+    with torch.enable_grad():
+        for b, h, c, k in (s for s in CONV3X3_SHAPES if s[0] == TRAIN_B):
+            x = torch.randn((b, h, h, c), generator=g, device=dev, dtype=torch.bfloat16).requires_grad_(True)
+            w = (torch.randn((3, 3, c, k), generator=g, device=dev) / math.sqrt(9 * c)).to(torch.bfloat16)
+            w.requires_grad_(True)
+            cot = torch.randn((b, h, h, k), generator=g, device=dev)
+            packed = pack_conv3x3_weight(w.detach())
+            grads = {}
+            for name, fn in (("kernel", lambda x, w: conv3x3(x, w, packed)), ("plain", conv3x3_ref)):
+                y = fn(x, w)
+                if name == "kernel" and y.grad_fn is None:
+                    raise AssertionError("conv3x3's output carries no grad_fn")
+                dx, dw = torch.autograd.grad((y.float() * cot).sum(), (x, w), retain_graph=True)
+                (dx2,) = torch.autograd.grad((F.leaky_relu(y.float(), 0.2) * cot).sum(), x, create_graph=True)
+                (r1,) = torch.autograd.grad(dx2.float().square().sum(), w)
+                grads[name] = (dx, dw, r1)
+            for key, a, want in zip(("conv3x3 dx", "conv3x3 dw", "conv3x3 R1 dw"), grads["kernel"], grads["plain"]):
+                worst[key] = max(worst[key], _rel(a, want))
+        for b, h, c in (s for s in INSTATS_SHAPES if s[0] == TRAIN_B):
+            x = torch.randn((b, h, h, c), generator=g, device=dev, dtype=torch.bfloat16).requires_grad_(True)
+            gm, gm2 = torch.randn((2, b, c), generator=g, device=dev)
+            m, m2 = instance_moments(x)
+            if m.grad_fn is None or m2.grad_fn is None:
+                raise AssertionError("instats' outputs carry no grad_fn")
+            (got,) = torch.autograd.grad((m * gm).sum() + (m2 * gm2).sum(), x)
+            rm, rm2 = _moments_ref(x)
+            (want,) = torch.autograd.grad((rm * gm).sum() + (rm2 * gm2).sum(), x)
+            worst["instats dx"] = max(worst["instats dx"], _rel(got, want))
+    print(f"train grads at the {sum(s[0] == TRAIN_B for s in CONV3X3_SHAPES)} conv3x3 and "
+          f"{sum(s[0] == TRAIN_B for s in INSTATS_SHAPES)} instats train shapes, kernel against plain "
+          f"(worst rel of the output scale, tol 2e-2): {worst}")
+    bad = {k: v for k, v in worst.items() if not v < 2e-2}
+    if bad:
+        raise AssertionError(f"kernel Function gradients depart from the plain versions': {bad}")
+
+
+def train_batches(cfg, n: int, batch: int, seed: int = 31) -> list[dict]:
+    """``n`` NHWC [0, 1] batches from a numpy seed, z from a torch.Generator."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    size = cfg.model.img_size
+    out = []
+    for _ in range(n):
+        out.append(dict(
+            x_src=rng.random((batch, size, size, 3), dtype=np.float32),
+            x_ref=rng.random((batch, size, size, 3), dtype=np.float32),
+            x_ref2=rng.random((batch, size, size, 3), dtype=np.float32),
+            y_src=rng.integers(0, cfg.model.num_domains, batch), y_ref=rng.integers(0, cfg.model.num_domains, batch),
+            z_trg=torch.randn((batch, cfg.model.latent_dim), generator=g),
+            z_trg2=torch.randn((batch, cfg.model.latent_dim), generator=g),
+        ))
+    return out
+
+
+def build_trainer(cfg, device: str, grad_hook=None):
+    from ppvision_tpu_torch.train.gan import init_gan, make_train_step
+    from ppvision_tpu_torch.train.pretrained import build_aux_losses, load_frozen_nets
+
+    state = init_gan(0, cfg, device)
+    frozen = load_frozen_nets(cfg, 0, device)
+    lpips_fn, flow_fn = build_aux_losses(cfg, 0, device)
+    return state, frozen, make_train_step(cfg, lpips_fn, flow_fn, grad_hook=grad_hook)
+
+
+def _max_delta(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def train_path(torch, kernels, card: str) -> dict:
+    """``train/gan.py`` at the reference recipe (``FaceDeIdConfig()``:
+    256^2, full width, bf16, batch 4, LPIPS x2000, RAFT flow x10 at 20
+    iterations): 3 steps on seeded batches, the counts set to 0 before
+    each step and read after it.  Every loss finite, every net moved,
+    each EMA less than its net; conv3x3, instats, fftconv and denseblock
+    launched in every step; no conv3x3, instats or denseblock shape that
+    their checks did not check.  Then one more step under
+    ``torch.profiler``: the device's busy share of a step."""
+    from ppvision_tpu_torch.config import FaceDeIdConfig
+
+    cfg = FaceDeIdConfig()
+    state, frozen, step = build_trainer(cfg, "cuda")
+    batches = train_batches(cfg, TRAIN_STEPS + 1, TRAIN_B)
+    before = {k: [p.detach().clone() for p in m.parameters()] for k, m in state.nets.items()}
+    ema_before = {k: [p.detach().clone() for p in m.parameters()] for k, m in state.ema.items()}
+    totals = {name: 0 for name in kernels}
+    seconds = []
+    seen, undo = record_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, frozen, batches[i])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        for name in totals:
+            totals[name] += launches[name]
+        losses = {k: float(v) for k, v in metrics.items()}
+        print(f"train step {i}: {seconds[-1]:.3f} s; launches {launches}; losses {json.dumps(losses)}")
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train step {i}: losses not finite: {bad}")
+        missing = [k for k in ("conv3x3", "instats", "fftconv", "denseblock") if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"train step {i}: kernels not launched: {missing}")
+    undo()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train shapes {({k: dict(v) for k, v in seen.items()})}; instats input copies "
+          f"{kernels['instats'].copies}; peak device memory {peak_gib:.2f} GiB")
+    unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock"))
+    if unchecked:
+        raise AssertionError(f"the train phase gave kernel shapes that were not checked: {unchecked}")
+    for name, params in before.items():
+        moved = _max_delta(state.nets[name].parameters(), params)
+        if not moved > 0:
+            raise AssertionError(f"train: {name} did not move")
+        if name in ema_before:
+            ema_moved = _max_delta(state.ema[name].parameters(), ema_before[name])
+            print(f"train: {name} moved {moved:.3e}, its EMA {ema_moved:.3e}")
+            if not 0 < ema_moved < moved:
+                raise AssertionError(f"train: the EMA of {name} moved {ema_moved}, its net {moved}")
+    # One more step under the profiler: the device's share of a step.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, frozen, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    # conv3x3_kernel<..., DenseBlockEpi> is a denseblock pass; fftconv is
+    # rows_forward, columns and rows_inverse.
+    names = {
+        "conv3x3": lambda k: "conv3x3_kernel" in k and "denseblock" not in k,
+        "instats": lambda k: "moments_kernel" in k,
+        "denseblock": lambda k: "denseblock" in k,
+        "fftconv": lambda k: any(n in k for n in ("rows_forward", "void columns", "rows_inverse")),
+    }
+    by_kernel = {name: sum(e.self_device_time_total for e in events if f(e.key.lower())) / 1e3
+                 for name, f in names.items()}
+    kinds = {
+        "port_kernels": lambda k: any(f(k) for f in names.values()),
+        "cudnn_and_gemm": lambda k: any(n in k for n in ("xmma", "conv", "dgrad", "wgrad", "gemm", "cutlass")),
+        "elementwise": lambda k: "elementwise" in k,
+        "reduce": lambda k: "reduce" in k,
+    }
+    by_kind = {}
+    for e in events:
+        key = e.key.lower()
+        kind = next((n for n, f in kinds.items() if f(key)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    steady = min(seconds[1:])
+    line = {
+        "train_step_s": seconds, "steady_step_s": steady, "B": TRAIN_B, "img": cfg.model.img_size,
+        "flow_iters": cfg.train.flow_iters, "profiled_step_s": profiled_s, "device_busy_ms": busy,
+        "device_idle_share_of_steady_step": max(0.0, 1 - busy / (steady * 1e3)),
+        "device_idle_share_profiled": max(0.0, 1 - busy / (profiled_s * 1e3)), "kernel_device_ms": by_kernel,
+        "device_ms_by_kind": by_kind, "peak_gib": peak_gib, "card": card,
+    }
+    print(json.dumps(line))
+    print(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
+    return dict(launches=totals, seconds=seconds)
+
+
+def plain_kernels():
+    """Point the names the modules call the four de-id kernels by at
+    their plain versions; returns undo."""
+    from ppvision_tpu_torch.models import fan, stargan
+    from ppvision_tpu_torch.ops import denseblock, fftconv, instats, winograd
+    from ppvision_tpu_torch.optics import fourier
+
+    def conv(x, w, packed=None):
+        return winograd.conv3x3_ref(x, w if w is not None else winograd.unpack_conv3x3_weight(packed, x.shape[-1]))
+
+    def dense(x, k1, k2, k3, *bn):
+        return denseblock._plain(x, k1, k2, k3, *denseblock._flat_bn(bn))
+
+    names = [(stargan, "conv3x3", conv), (stargan, "instance_moments", instats._moments_ref),
+             (fan, "fused_dense_block", dense), (fourier, "fftconv_circular", fftconv.fftconv_circular_ref)]
+    inner = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, fn in names:
+        setattr(mod, name, fn)
+
+    def undo():
+        for mod, name, fn in inner:
+            setattr(mod, name, fn)
+
+    return undo
+
+
+def train_gpu_vs_cpu(torch, kernels) -> None:
+    """One train step at a reduced width (64^2, max_conv_dim 64, FAN at
+    64, RAFT at 3 iterations; B = 2) on the card and on the port's CPU
+    path, same seeded weights and batch.  Every run applies the CPU bf16
+    run's gradients in place of its own, so each sub-step starts from the
+    same weights everywhere: Adam's first step moves every weight by
+    +-lr whatever the size of its gradient, so a rounding that flips a
+    near-zero gradient's sign would move that weight by 2 lr and later
+    sub-steps would compare other weights.
+
+    f32 (instats and fftconv on the card; TF32 off): every loss within
+    2e-2 relative of the CPU's, each sub-step's gradient of each net at
+    cosine >= 0.98.  bf16 (the four de-id kernels): each loss and
+    gradient no further from the CPU's f32 run than 1.5 x the farther of
+    two other bf16 runs (the CPU's, and the card's with the plain
+    versions in place of the kernels), nor than 1.5 x the f32 bounds.
+    With random weights the generator's L1 terms take the sign of small
+    differences, so in bf16 its gradient is mostly rounding noise, and
+    ``G/ref_ds`` (the mean of a difference of two fakes) moves between
+    bf16 runs by more than the f32 bound."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig, TrainConfig
+
+    def cfg(dtype):
+        return FaceDeIdConfig(
+            model=ModelConfig(img_size=64, max_conv_dim=64, fan_input_size=64, compute_dtype=dtype),
+            camera=CameraConfig(n=64), train=TrainConfig(flow_iters=3),
+        )
+
+    batch = train_batches(cfg("float32"), 1, 2, seed=37)[0]
+    runs, teacher = {}, {}
+    for name, dtype, dev in (("cpu16", "bfloat16", "cpu"), ("card16", "bfloat16", "cuda"),
+                             ("card16_plain", "bfloat16", "cuda"), ("cpu32", "float32", "cpu"),
+                             ("card32", "float32", "cuda")):
+        grads = {}
+
+        def hook(sub, by_net):
+            for net, gs in by_net.items():
+                grads[sub, net] = torch.cat([g.detach().double().flatten().cpu() for g in gs])
+            if sub not in teacher:
+                teacher[sub] = {net: [g.detach().cpu().clone() for g in gs] for net, gs in by_net.items()}
+                return None
+            return {net: [g.to(gs[0].device) for g in teacher[sub][net]] for net, gs in by_net.items()}
+
+        undo = plain_kernels() if name.endswith("_plain") else (lambda: None)
+        for fn in kernels.values():
+            fn.launches = 0
+        state, frozen, step = build_trainer(cfg(dtype), dev, grad_hook=hook)
+        t0 = time.perf_counter()
+        losses = {k: float(v) for k, v in step(state, frozen, batch).items()}
+        undo()
+        launched = {k: fn.launches for k, fn in kernels.items()}
+        print(f"train step at 64^2, {name}: {time.perf_counter() - t0:.2f} s; launches {launched}")
+        if name == "card16" and not all(launched[k] for k in ("conv3x3", "instats", "fftconv", "denseblock")):
+            raise AssertionError(f"the bf16 card step did not launch every de-id kernel: {launched}")
+        if name == "card16_plain" and any(launched.values()):
+            raise AssertionError(f"the plain bf16 card step launched kernels: {launched}")
+        runs[name] = losses, grads
+
+    def rel(a, b):
+        return {k: abs(runs[a][0][k] - runs[b][0][k]) / max(abs(runs[b][0][k]), 1e-6) for k in runs[b][0]}
+
+    def angle(a, b):  # 1 - cosine
+        ga, gb = runs[a][1], runs[b][1]
+        return {f"{s}:{n}": 1 - float(ga[s, n] @ gb[s, n] / (ga[s, n].norm() * gb[s, n].norm() + 1e-30))
+                for s, n in gb}
+
+    r32, a32 = rel("card32", "cpu32"), angle("card32", "cpu32")
+    r16, a16 = rel("card16", "cpu32"), angle("card16", "cpu32")
+    noise = {k: max(rel("cpu16", "cpu32")[k], rel("card16_plain", "cpu32")[k], 2e-2) for k in r16}
+    anoise = {k: max(angle("cpu16", "cpu32")[k], angle("card16_plain", "cpu32")[k], 2e-2) for k in a16}
+    for tag, r, a in (("f32 card vs CPU", r32, a32), ("bf16 card vs CPU f32", r16, a16),
+                      ("bf16 CPU vs CPU f32", rel("cpu16", "cpu32"), angle("cpu16", "cpu32")),
+                      ("bf16 card plain vs CPU f32", rel("card16_plain", "cpu32"), angle("card16_plain", "cpu32"))):
+        print(f"train {tag}: loss rel {json.dumps(r)}; gradient 1 - cosine {json.dumps(a)}")
+    bad = [f"f32 {k}" for k, v in r32.items() if not v <= 2e-2] + [f"f32 {k}" for k, v in a32.items() if not v <= 2e-2]
+    bad += [f"bf16 {k}" for k, v in r16.items() if not v <= 1.5 * noise[k]]
+    bad += [f"bf16 {k}" for k, v in a16.items() if not v <= 1.5 * anoise[k]]
+    if bad:
+        raise AssertionError(f"the train step on the card departs from the CPU's: {bad}")
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
@@ -864,7 +1200,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"ptxas serialized the wgmmas of csrc/{name}.cu")
 
     corr_record, corr_bounds = check_corr(torch, dev)
-    records = [*check_fftconv(torch, dev), check_denseblock(torch, dev),
+    records = [*check_fftconv(torch, dev), *check_denseblock(torch, dev),
                *check_instats(torch, dev), *check_conv3x3(torch, dev), corr_record]
     for r in records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -876,11 +1212,15 @@ def main(argv=None) -> int:
     raft_checks(torch, video["pairs"])
     raft_matmul_conv(torch)
     raft_throughput(torch, video["pairs"], card, video["seconds"], corr_bounds)
+    check_train_grads(torch, dev)
+    train = train_path(torch, KERNELS, card)
+    train_gpu_vs_cpu(torch, KERNELS)
 
-    # A record at a de-id shape takes its launches from the served run; at
-    # a video shape (fftconv at 256^2, corr), from the video path.
+    # A record takes its launches from the run of its path: the served
+    # run, the video phase or the train phase's 3 steps.
+    runs = {"deid": launches, "video": video["launches"], "train": train["launches"]}
     for r in records:
-        r["launches"] = (launches if r["path"] == "deid" else video["launches"])[r["name"]]
+        r["launches"] = runs[r["path"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     print(card)

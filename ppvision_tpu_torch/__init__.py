@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of ``ppvision_tpu`` for NVIDIA Hopper (H100).
 
 The package mirrors the JAX package's layout and names module for
-module (``config``, ``optics``, ``ops``, ``models``, ``deid``,
-``serve``, ``utils``).  Public entry points take and return the JAX
+module (``config``, ``optics``, ``ops``, ``models``, ``metrics``,
+``deid``, ``sample``, ``serve``, ``train``, ``utils``).  Public entry points take and return the JAX
 package's NHWC layout; inside, modules run NCHW tensors in
 ``torch.channels_last`` memory format, which hands the hand-written
 Hopper kernels (``csrc/``) NHWC bytes without copies.

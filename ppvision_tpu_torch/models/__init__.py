@@ -1,6 +1,7 @@
-"""Networks of the de-identification pipeline: FAN and StarGAN-v2."""
+"""Networks of the de-identification pipeline and its training: FAN,
+StarGAN-v2 (with its Discriminator) and RAFT."""
 
 from .fan import FAN, get_heatmap
-from .stargan import Generator, MappingNetwork, StyleEncoder, build_gan_models
+from .stargan import Discriminator, Generator, MappingNetwork, StyleEncoder, build_gan_models
 
-__all__ = ["FAN", "Generator", "MappingNetwork", "StyleEncoder", "build_gan_models", "get_heatmap"]
+__all__ = ["FAN", "Discriminator", "Generator", "MappingNetwork", "StyleEncoder", "build_gan_models", "get_heatmap"]

@@ -338,7 +338,9 @@ class RAFT(nn.Module):
         net, inp = torch.tanh(net), F.relu(inp)
 
         b, h, w, _ = fmap1.shape
-        coords0 = coords_grid(b, h, w, fmap1.device)
+        # The grid's values are integers: the same in f32 and in the
+        # features' dtype, which the update block's convs need.
+        coords0 = coords_grid(b, h, w, fmap1.device).to(fmap1.dtype)
         coords1 = coords0
         for _ in range(iters):
             coords1 = coords1.detach()
@@ -353,7 +355,9 @@ class RAFT(nn.Module):
 def raft_flow_loss(raft: RAFT, frames1: torch.Tensor, frames2: torch.Tensor, iters: int = 20) -> torch.Tensor:
     """Temporal-consistency loss: sum over the batch of |mean(flow)|
     between frame pairs (reference loss_RAFT.__call__, utils.py:460-462),
-    batched."""
+    batched.  The gradient reaches the frames; RAFT's own weights stay
+    frozen (``build_raft``), and each refinement step detaches its
+    coordinates as the reference does."""
     flow = raft(frames1, frames2, iters=iters)
     return torch.sum(torch.abs(torch.mean(flow, dim=(1, 2, 3))))
 

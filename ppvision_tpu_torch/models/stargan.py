@@ -4,8 +4,9 @@ Port of ``ppvision_tpu/models/stargan.py`` (reference
 ``core/model.py``): Generator with its ``encode``/``decode`` split,
 MappingNetwork and StyleEncoder.  Modules keep the reference
 state_dict names (``from_rgb``, ``encode.N.conv1``,
-``decode.N.norm1.fc``, ``to_rgb.2``, ``shared.N``, ``unshared.N``) so
-reference checkpoints load directly.
+``decode.N.norm1.fc``, ``to_rgb.2``, ``shared.N``, ``unshared.N``,
+``main.N``) so reference checkpoints load directly.  The Discriminator
+runs in training only.
 
 Numerics follow the JAX package op for op: parameters stay f32 and are
 cast to the compute dtype at use; convs and dense layers round their
@@ -16,6 +17,8 @@ weak types do.  Two kernels sit under these modules on CUDA: every
 stride-1 3x3 conv with channels % 16 = 0 in bf16 runs
 :func:`ops.winograd.conv3x3`, and every InstanceNorm/AdaIN moment and
 the encoder's skip mean run :func:`ops.instats.instance_moments`.
+Both carry gradients: their backward is the plain version's VJP, and
+conv3x3's is differentiable again (R1's gradient of a gradient).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ __all__ = [
     "Generator",
     "MappingNetwork",
     "StyleEncoder",
+    "Discriminator",
     "build_gan_models",
     "init_params_",
 ]
@@ -84,7 +88,9 @@ class Conv(nn.Conv2d):
     then the bias is added in it.  Stride-1 SAME 3x3 convs on CUDA bf16
     with channels % 16 = 0 run kernel 4; the kernel's (3, 3, C, K) bf16
     weight copy and its packed image (``pack_conv3x3_weight``) are made
-    once per weight version."""
+    once per weight version, so an optimizer step repacks them.  Where
+    the weight takes a gradient the kernel is handed the differentiable
+    compute-dtype weight beside the packed copy."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0, bias=True, dtype=None):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
@@ -121,7 +127,11 @@ class Conv(nn.Conv2d):
         dt = self.compute_dtype or x.dtype
         x = x.to(dt)
         if self._kernel_eligible(x):
-            y = conv3x3(x.permute(0, 2, 3, 1), self.packed_weight(dt)).permute(0, 3, 1, 2)
+            if torch.is_grad_enabled() and self.weight.requires_grad:
+                w = self.weight.permute(2, 3, 1, 0).to(dt)
+            else:
+                w = self.hwio_weight(dt)
+            y = conv3x3(x.permute(0, 2, 3, 1), w, self.packed_weight(dt)).permute(0, 3, 1, 2)
         else:
             y = F.conv2d(x, self.weight.to(dt), None, self.stride, self.padding)
         if self.bias is not None:
@@ -391,30 +401,63 @@ class MappingNetwork(nn.Module):
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
+def _trunk(img_size: int, max_conv_dim: int, dtype) -> tuple[list[nn.Module], int]:
+    """The conv trunk the StyleEncoder and the Discriminator share: stem,
+    ResBlks down to 4x4, LReLU, 4x4 valid conv, LReLU; and its width."""
+    repeat = int(math.log2(img_size)) - 2
+    dims = _channel_dims(img_size, max_conv_dim, repeat)
+    blocks = [Conv(3, dims[0], 3, 1, 1, dtype=dtype)]
+    blocks += [ResBlk(dims[i], dims[i + 1], downsample=True, dtype=dtype) for i in range(repeat)]
+    blocks += [nn.LeakyReLU(0.2), Conv(dims[-1], dims[-1], 4, 1, 0, dtype=dtype), nn.LeakyReLU(0.2)]
+    return blocks, dims[-1]
+
+
+def _run_trunk(blocks, x: torch.Tensor, dtype) -> torch.Tensor:
+    """NCHW images through the trunk's blocks -> (B, width)."""
+    h = x if dtype is None else x.to(dtype)
+    for m in blocks:
+        h = leaky_relu(h) if isinstance(m, nn.LeakyReLU) else m(h)
+    return h.reshape(h.shape[0], -1)
+
+
 class StyleEncoder(nn.Module):
-    """Image -> per-domain style code: stem, ResBlks down to 4x4, LReLU,
-    4x4 valid conv, LReLU, one dense head per domain."""
+    """Image -> per-domain style code: the conv trunk, one dense head per
+    domain."""
 
     def __init__(self, img_size=256, style_dim=64, num_domains=2, max_conv_dim=512, dtype=None):
         super().__init__()
         self.compute_dtype = dtype
-        repeat = int(math.log2(img_size)) - 2
-        dims = _channel_dims(img_size, max_conv_dim, repeat)
-        blocks = [Conv(3, dims[0], 3, 1, 1, dtype=dtype)]
-        blocks += [ResBlk(dims[i], dims[i + 1], downsample=True, dtype=dtype) for i in range(repeat)]
-        blocks += [nn.LeakyReLU(0.2), Conv(dims[-1], dims[-1], 4, 1, 0, dtype=dtype), nn.LeakyReLU(0.2)]
+        blocks, width = _trunk(img_size, max_conv_dim, dtype)
         self.shared = nn.Sequential(*blocks)
-        self.unshared = nn.ModuleList(nn.Linear(dims[-1], style_dim) for _ in range(num_domains))
+        self.unshared = nn.ModuleList(nn.Linear(width, style_dim) for _ in range(num_domains))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """NCHW images, integer domains -> (B, style_dim) f32 styles."""
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        h = x
-        for m in self.shared:
-            h = leaky_relu(h) if isinstance(m, nn.LeakyReLU) else m(h)
-        h = h.reshape(h.shape[0], -1)
+        h = _run_trunk(self.shared, x, self.compute_dtype)
         out = torch.stack([_dense(h, lin, self.compute_dtype) for lin in self.unshared], dim=1)
+        out = _select_domain(out, y)
+        return out.to(torch.promote_types(out.dtype, torch.float32))
+
+
+class Discriminator(nn.Module):
+    """Image -> real/fake logit of its domain (reference model.py:253-277):
+    the conv trunk and a 1x1 conv to one logit per domain, all under
+    ``main``.  The 1x1 conv sees a 1x1 map, so it runs as the JAX
+    package's dense layer: matmul rounded to the compute dtype, then the
+    bias."""
+
+    def __init__(self, img_size=256, num_domains=2, max_conv_dim=512, dtype=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        blocks, width = _trunk(img_size, max_conv_dim, dtype)
+        self.main = nn.Sequential(*blocks, nn.Conv2d(width, num_domains, 1))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """NCHW images, integer domains -> (B,) f32 logits."""
+        h = _run_trunk(self.main[:-1], x, self.compute_dtype)
+        head = self.main[-1]
+        dt = self.compute_dtype or h.dtype
+        out = F.linear(h.to(dt), head.weight.flatten(1).to(dt)) + head.bias.to(dt)
         out = _select_domain(out, y)
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
@@ -445,13 +488,14 @@ def build_gan_models(
     dtype=None,
     quant_decode: bool = False,
 ) -> dict[str, nn.Module]:
-    """The de-id GAN nets (reference build_model, model.py:280-310).
-    The discriminator is training-only and joins with the training
-    slice; the int8 decode mode is not ported yet."""
+    """The four GAN nets (reference build_model, model.py:280-310); the
+    discriminator runs in training only.  The int8 decode mode is not
+    ported yet."""
     if quant_decode:
         raise NotImplementedError("quant_decode (int8 decoder) is not ported to the torch package yet")
     return dict(
         generator=Generator(img_size, style_dim, max_conv_dim, w_hpf, dtype=dtype),
         mapping_network=MappingNetwork(latent_dim, style_dim, num_domains, dtype=dtype),
         style_encoder=StyleEncoder(img_size, style_dim, num_domains, max_conv_dim, dtype=dtype),
+        discriminator=Discriminator(img_size, num_domains, max_conv_dim, dtype=dtype),
     )

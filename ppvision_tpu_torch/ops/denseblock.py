@@ -18,6 +18,11 @@ convs over valid pixels only on conv3x3's ``wgmma`` mainloop, each
 epilogue writing ``o_k + x`` into its channels of the output and
 ``bn_relu_{k+1}(o_k)`` into the next pass's input.  The intermediates
 stay in L2.
+
+The kernel has no backward, as the Pallas kernel has none: a call that
+needs a gradient goes through :class:`DenseBlockFn`, whose backward is
+the plain version's VJP (``ppvision_tpu/ops/denseblock.py::_fused_bwd``),
+first order; packed weights and BN are unpacked for it.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._vjp import plain_vjp
 from .winograd import pack_conv3x3_weight, unpack_conv3x3_weight
 
-__all__ = ["fused_dense_block", "dense_block_ref", "dense_block_supported", "pack_dense_bn"]
+__all__ = ["DenseBlockFn", "fused_dense_block", "dense_block_ref", "dense_block_supported", "pack_dense_bn"]
 
 _SIGS = {"denseblock": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
@@ -61,9 +67,10 @@ def dense_block_supported(x: torch.Tensor) -> bool:
 
 
 def pack_dense_bn(bns, f: int) -> torch.Tensor:
-    """The three (mul, add) pairs as one zero-padded (6, F) f32 tensor:
-    rows mul1, add1, mul2, add2, mul3, add3."""
-    packed = torch.zeros((6, f), dtype=torch.float32, device=bns[0][0].device)
+    """The three (mul, add) pairs as one zero-padded (6, F) tensor, f32
+    (f64 for f64 pairs): rows mul1, add1, mul2, add2, mul3, add3."""
+    dtype = torch.promote_types(bns[0][0].dtype, torch.float32)
+    packed = torch.zeros((6, f), dtype=dtype, device=bns[0][0].device)
     for i, (mul, add) in enumerate(bns):
         packed[2 * i, : mul.shape[0]] = mul
         packed[2 * i + 1, : add.shape[0]] = add
@@ -75,6 +82,42 @@ def _unpack_bn(packed: torch.Tensor) -> list[BnPair]:
     return [(packed[2 * i, :c], packed[2 * i + 1, :c]) for i, c in enumerate((f, f // 2, f // 4))]
 
 
+def _flat_bn(bn) -> tuple[torch.Tensor, ...]:
+    """``fused_dense_block``'s BN argument as tensors: the one (6, F)
+    pack, or the three pairs' six tensors."""
+    return tuple(bn) if len(bn) == 1 else tuple(t for pair in bn for t in pair)
+
+
+def _bn_pairs(bn) -> list[BnPair]:
+    """The three (mul, add) pairs from one (6, F) pack or six tensors."""
+    return _unpack_bn(bn[0]) if len(bn) == 1 else list(zip(bn[0::2], bn[1::2]))
+
+
+def _plain(x, k1, k2, k3, *bn) -> torch.Tensor:
+    """The plain version on the kernels (HWIO or packed) and the BN (one
+    pack or six tensors)."""
+    cins = (x.shape[-1], x.shape[-1] // 2, x.shape[-1] // 4)
+    ks = [unpack_conv3x3_weight(k, c) if k.ndim == 5 else k for k, c in zip((k1, k2, k3), cins)]
+    return dense_block_ref(x, *ks, *_bn_pairs(bn))
+
+
+class DenseBlockFn(torch.autograd.Function):
+    """``forward(x, k1, k2, k3, *bn)`` computes the block (the kernel on
+    CUDA), ``bn`` one (6, F) pack or the six tensors mul1, add1, ..,
+    add3; the backward is the plain version's VJP.  ``forward`` is the
+    function that computes it (the kernel launch, or in tests the plain
+    version)."""
+
+    @staticmethod
+    def forward(ctx, forward, x, *args):
+        ctx.save_for_backward(x, *args)
+        return forward(x, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *plain_vjp(_plain, ctx.saved_tensors, ctx.needs_input_grad[1:], g))
+
+
 def fused_dense_block(x, k1, k2, k3, *bn) -> torch.Tensor:
     """Whole DenseConvBlock on an NHWC batch.  ``k1..k3`` are the kernels
     (3,3,F,F/2), (3,3,F/2,F/4), (3,3,F/4,F/4), each HWIO in the compute
@@ -82,29 +125,44 @@ def fused_dense_block(x, k1, k2, k3, *bn) -> torch.Tensor:
     is the three (mul, add) f32 pairs, or their :func:`pack_dense_bn`.
     HWIO kernels and pairs are packed on every call: a caller that reuses
     them packs once (``models/fan.py::DenseConvBlock``).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    take the plain version; CUDA tensors launch the kernel or raise.
+    Where a gradient is needed the call goes through
+    :class:`DenseBlockFn`."""
     b, h, w, f = x.shape
     cins = (f, f // 2, f // 4)
     if x.device.type != "cuda":
-        ks = [unpack_conv3x3_weight(k, c) if k.ndim == 5 else k for k, c in zip((k1, k2, k3), cins)]
-        return dense_block_ref(x, *ks, *(_unpack_bn(bn[0]) if len(bn) == 1 else bn))
+        return _plain(x, k1, k2, k3, *_flat_bn(bn))
     if not dense_block_supported(x):
         raise ValueError(
             f"denseblock kernel takes bf16 NHWC input with 128 or 256 channels, "
             f"got {x.dtype} {tuple(x.shape)}"
         )
-    ks = []
+    bn = _flat_bn(bn)
     for k, c, kout in zip((k1, k2, k3), cins, (f // 2, f // 4, f // 4)):
         packed = k.ndim == 5
         want = (9, -(-c // 64), kout, 8, 8) if packed else (3, 3, c, kout)
         if tuple(k.shape) != want or k.dtype != torch.bfloat16 or k.device != x.device:
             raise ValueError(f"denseblock kernel weight must be bf16 {want} on {x.device}, got "
                              f"{k.dtype} {tuple(k.shape)}")
-        ks.append(k.contiguous() if packed else pack_conv3x3_weight(k))
-    bn = bn[0] if len(bn) == 1 else pack_dense_bn(bn, f)
-    if tuple(bn.shape) != (6, f) or bn.dtype != torch.float32 or bn.device != x.device:
+    bn_packed = bn[0] if len(bn) == 1 else None
+    if bn_packed is not None and (
+        tuple(bn_packed.shape) != (6, f) or bn_packed.dtype != torch.float32 or bn_packed.device != x.device
+    ):
         raise ValueError(f"denseblock BN must be (6, {f}) f32 on {x.device}")
-    x, bn = x.contiguous(), bn.contiguous()
+    x = x.contiguous()
+    args = (k1, k2, k3, *bn)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *args)):
+        return DenseBlockFn.apply(_launch, x, *args)
+    return _launch(x, *args)
+
+
+def _launch(x, k1, k2, k3, *bn) -> torch.Tensor:
+    """The CUDA kernel on a contiguous bf16 NHWC ``x`` and checked
+    weights and BN, packed here where they are not."""
+    b, h, w, f = x.shape
+    ks = [(k if k.ndim == 5 else pack_conv3x3_weight(k.detach())).contiguous() for k in (k1, k2, k3)]
+    bn = bn[0] if len(bn) == 1 else pack_dense_bn([(m.detach(), a.detach()) for m, a in _bn_pairs(bn)], f)
+    bn = bn.contiguous()
     out = torch.empty_like(x)
     scratch = torch.empty(b * h * w * (f + f // 2), dtype=x.dtype, device=x.device)
     lib = _build.load("denseblock", _SIGS)

@@ -9,6 +9,11 @@ kernel ``ppvision_tpu/ops/fftconv.py::_fftconv_kernel``); on a CPU
 tensor it runs the plain ``torch.fft`` version, which is also the
 kernel's oracle on the card.  ``fftconv_circular.launches`` counts
 calls: one per call, whatever the number of CUDA launches in it.
+
+The kernel has no backward, as the Pallas kernel has none: a call that
+needs a gradient goes through :class:`FFTConvFn`, whose backward is the
+plain version's VJP (``ppvision_tpu/ops/fftconv.py::_fused_bwd``),
+first order.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import numpy as np
 import torch
 
 from . import _build
+from ._vjp import plain_vjp
 
-__all__ = ["fftconv_circular", "fftconv_circular_ref", "fftconv_supported"]
+__all__ = ["FFTConvFn", "fftconv_circular", "fftconv_circular_ref", "fftconv_supported"]
 
 _SIGS = {
     "fftconv_circular": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -33,6 +39,22 @@ def fftconv_circular_ref(img: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.
     otf = torch.complex(otf_re, otf_im)
     spec = torch.fft.fft2(img, dim=(-3, -2)) * otf
     return torch.fft.ifft2(spec, dim=(-3, -2)).real
+
+
+class FFTConvFn(torch.autograd.Function):
+    """``forward(img, otf_re, otf_im)`` computes the circular conv (the
+    kernel on CUDA); the backward is the plain version's VJP.
+    ``forward`` is the function that computes it (the kernel launch, or
+    in tests the plain version)."""
+
+    @staticmethod
+    def forward(ctx, img, otf_re, otf_im, forward):
+        ctx.save_for_backward(img, otf_re, otf_im)
+        return forward(img, otf_re, otf_im)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(fftconv_circular_ref, ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
 
 
 def fftconv_supported(img_shape, otf_shape) -> bool:
@@ -63,7 +85,8 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 def fftconv_circular(img: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Tensor) -> torch.Tensor:
     """Circular conv of an NHWC f32 batch (B, n, n, C) with an (n, n, C)
     OTF given as real and imaginary f32 parts.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise.  Where a
+    gradient is needed the call goes through :class:`FFTConvFn`."""
     if img.device.type != "cuda":
         return fftconv_circular_ref(img, otf_re, otf_im)
     if not fftconv_supported(img.shape, otf_re.shape) or otf_im.shape != otf_re.shape:
@@ -77,6 +100,13 @@ def fftconv_circular(img: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Tens
     img = img.contiguous()
     otf_re = otf_re.contiguous()
     otf_im = otf_im.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (img, otf_re, otf_im)):
+        return FFTConvFn.apply(img, otf_re, otf_im, _launch)
+    return _launch(img, otf_re, otf_im)
+
+
+def _launch(img: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on contiguous f32 tensors of checked shapes."""
     b, n, _, c = img.shape
     lib = _build.load("fftconv", _SIGS)
     out = torch.empty_like(img)

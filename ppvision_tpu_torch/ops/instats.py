@@ -15,6 +15,10 @@ partial sums in a fixed order.  So the result's bits depend on the shape
 alone: two calls agree bit for bit.  The partial sums and the tickets
 live in a scratch buffer the wrapper keeps per device and stream (the
 kernel leaves the tickets zeroed); the kernel allocates nothing.
+
+The kernel has no backward, as the Pallas kernel has none: a call that
+needs a gradient goes through :class:`MomentsFn`, whose backward is the
+plain version's VJP (``ppvision_tpu/ops/instats.py::_make``'s ``bwd``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from . import _build
 
-__all__ = ["instance_moments", "plan_split", "_moments_ref"]
+__all__ = ["MomentsFn", "instance_moments", "moments_vjp", "plan_split", "_moments_ref"]
 
 _SIGS = {"instance_moments": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
 
@@ -48,6 +52,33 @@ def _moments_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: f32 mean and mean of squares over (H, W)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     return xf.mean(dim=(1, 2)), (xf * xf).mean(dim=(1, 2))
+
+
+def moments_vjp(x: torch.Tensor, gm: torch.Tensor, gm2: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`_moments_ref` at NHWC ``x`` for the (B, C)
+    cotangents of the mean and the mean of squares, in x's dtype:
+    (gm + 2 x gm2) / (H W), from differentiable ops."""
+    n = x.shape[1] * x.shape[2]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dx = gm[:, None, None, :] / n + (2.0 / n) * (gm2[:, None, None, :] * xf)
+    return dx.to(x.dtype)
+
+
+class MomentsFn(torch.autograd.Function):
+    """``forward(x)`` computes the two moments (the kernel on CUDA); the
+    backward is :func:`moments_vjp` on the saved x.  ``forward`` is the
+    function that computes them (the kernel launch, or in tests the
+    plain version)."""
+
+    @staticmethod
+    def forward(ctx, x, forward):
+        ctx.save_for_backward(x)
+        return forward(x)
+
+    @staticmethod
+    def backward(ctx, gm, gm2):
+        (x,) = ctx.saved_tensors
+        return moments_vjp(x, gm, gm2), None
 
 
 @functools.lru_cache(maxsize=256)
@@ -116,7 +147,8 @@ def instance_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     f32, shape (B, C) each.  CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise.  A CUDA tensor that is not
     contiguous is copied first, and ``instance_moments.copies`` counts
-    those calls."""
+    those calls.  Where a gradient is needed the call goes through
+    :class:`MomentsFn`."""
     if x.device.type != "cuda":
         return _moments_ref(x)
     if x.ndim != 4 or x.dtype not in (torch.bfloat16, torch.float32) or x.numel() == 0:
@@ -129,6 +161,13 @@ def instance_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if not x.is_contiguous():
         instance_moments.copies += 1
         x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return MomentsFn.apply(x, _kernel)
+    return _kernel(x)
+
+
+def _kernel(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    b, h, w, c = x.shape
     return _launch(x, *plan_split(b, h * w, c, x.element_size()))
 
 

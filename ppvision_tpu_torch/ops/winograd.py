@@ -16,6 +16,12 @@ image, so a stage's weight tile is one contiguous run, loaded by one
 bulk copy.  The source's head
 note gives the tile rule and the bytes it reads from L2.  On the CPU it
 runs :func:`conv3x3_ref`, the plain ``F.conv2d``.
+
+The kernel has no backward of its own, as the Pallas kernel has none: a
+call that needs a gradient goes through :class:`Conv3x3Fn`, whose
+backward is the plain conv's VJP (``ppvision_tpu/ops/winograd.py::
+_winograd_bwd``), built from differentiable ops on the saved input and
+weight, so a gradient of that gradient (R1's penalty) flows too.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = [
+    "Conv3x3Fn",
     "conv3x3",
     "conv3x3_ref",
     "conv3x3_supported",
@@ -82,35 +89,91 @@ def conv3x3_supported(x: torch.Tensor, features: int) -> bool:
     )
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Bias-free SAME 3x3 conv, NHWC x (HWIO or packed) -> NHWC.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  An HWIO ``w`` is packed on every call: a caller that reuses
-    its weights packs them once (``models/stargan.py::Conv``)."""
-    packed = w.ndim == 5
+def conv3x3_vjp(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, need=(True, True)):
+    """(dx, dw) of the plain SAME 3x3 conv of NHWC ``x`` with HWIO ``w``
+    at the output cotangent ``g`` (rounded to x's dtype first, dw cast to
+    w's dtype, as the JAX VJP does); either is None where ``need`` says
+    so.  One ``convolution_backward``, which is itself differentiable."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [bool(need[0]), bool(need[1]), False],
+    )
+    return (
+        None if dx is None else dx.permute(0, 2, 3, 1),
+        None if dw is None else dw.permute(2, 3, 1, 0).to(w.dtype),
+    )
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """``forward(x, w, packed)`` runs the conv (the kernel on CUDA, from
+    the packed weight); the backward is :func:`conv3x3_vjp` on the saved
+    x and HWIO w.  ``w`` is None where the caller holds only the packed
+    copy: the gradient then reaches x alone.  ``packed`` is a cached
+    constant and gets no gradient.  ``forward`` is the function that
+    computes the output (the kernel launch, or in tests the plain conv)."""
+
+    @staticmethod
+    def forward(ctx, x, w, packed, forward):
+        ctx.save_for_backward(x, w, packed)
+        return forward(x, w, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, packed = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        if w is None:
+            w = unpack_conv3x3_weight(packed, x.shape[-1])
+        dx, dw = conv3x3_vjp(x, w, g, need)
+        return dx, dw, None, None
+
+
+def _launch(x: torch.Tensor, w, packed: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on a contiguous bf16 NHWC ``x`` and packed weights."""
     b, h, wd, c = x.shape
-    if x.device.type != "cuda":
-        return conv3x3_ref(x, unpack_conv3x3_weight(w, c) if packed else w)
-    k = w.shape[2] if packed else w.shape[-1]
-    want = (9, -(-c // 64), k, 8, 8) if packed else (3, 3, c, k)
-    if not conv3x3_supported(x, k) or tuple(w.shape) != want:
-        raise ValueError(
-            f"conv3x3 kernel takes bf16 NHWC input and a (3, 3, C, K) kernel (or its packed "
-            f"copy) with C, K % 16 = 0; got {x.dtype} {tuple(x.shape)} and {tuple(w.shape)}"
-        )
-    if w.dtype != torch.bfloat16 or w.device != x.device:
-        raise ValueError("conv3x3 kernel weight must be bf16 on the input's device")
-    x = x.contiguous()
-    w = w.contiguous() if packed else pack_conv3x3_weight(w)
+    k = packed.shape[2]
     out = torch.empty((b, h, wd, k), dtype=x.dtype, device=x.device)
     lib = _build.load("winograd", _SIGS)
     err = lib.conv3x3(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, k,
+        x.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, wd, c, k,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "conv3x3")
     conv3x3.launches += 1
     return out
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+    """Bias-free SAME 3x3 conv, NHWC x -> NHWC.  ``w`` is the (3, 3, C, K)
+    HWIO kernel or, alone, its packed copy; ``packed`` is that copy of an
+    HWIO ``w``, made once by a caller that reuses its weights
+    (``models/stargan.py::Conv``); without it the kernel packs ``w`` on
+    every call.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise.  Where a gradient is needed the call goes
+    through :class:`Conv3x3Fn`; with the packed copy alone it reaches x
+    only."""
+    if w.ndim == 5:
+        w, packed = None, w
+    b, h, wd, c = x.shape
+    if x.device.type != "cuda":
+        return conv3x3_ref(x, unpack_conv3x3_weight(packed, c) if w is None else w)
+    k = w.shape[-1] if w is not None else packed.shape[2]
+    want = (9, -(-c // 64), k, 8, 8)
+    if not conv3x3_supported(x, k) or (w is not None and tuple(w.shape) != (3, 3, c, k)) or (
+        packed is not None and tuple(packed.shape) != want
+    ):
+        shapes = [tuple(t.shape) for t in (w, packed) if t is not None]
+        raise ValueError(
+            f"conv3x3 kernel takes bf16 NHWC input and a (3, 3, C, K) kernel (or its packed "
+            f"copy) with C, K % 16 = 0; got {x.dtype} {tuple(x.shape)} and {shapes}"
+        )
+    for t in (w, packed):
+        if t is not None and (t.dtype != torch.bfloat16 or t.device != x.device):
+            raise ValueError("conv3x3 kernel weight must be bf16 on the input's device")
+    x = x.contiguous()
+    packed = pack_conv3x3_weight(w.detach()) if packed is None else packed.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or (w is not None and w.requires_grad)):
+        return Conv3x3Fn.apply(x, w, packed, _launch)
+    return _launch(x, w, packed)
 
 
 conv3x3.launches = 0

@@ -19,9 +19,12 @@ import torch
 
 __all__ = [
     "camera_state_dict",
+    "discriminator_state_dict",
     "fan_state_dict",
     "generator_state_dict",
     "load_deid_params",
+    "load_train_params",
+    "lpips_state_dict",
     "mapping_state_dict",
     "raft_state_dict",
     "style_encoder_state_dict",
@@ -37,7 +40,9 @@ _HG_ORDER = [
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    """f32, or f64 where the JAX array is f64 (the x64 parity runs)."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
 def _conv(out: dict, name: str, p: Tree) -> None:
@@ -150,17 +155,46 @@ def mapping_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
     return out
 
 
+def _conv_trunk(out: dict, prefix: str, trunk: Tree) -> int:
+    """The StyleEncoder's / Discriminator's ``_ConvTrunk``; returns its
+    number of ResBlks."""
+    repeat = _count(trunk, "ResBlk_")
+    _conv(out, f"{prefix}.0", trunk["Conv_0"])
+    for i in range(repeat):
+        _resblk(out, f"{prefix}.{1 + i}", trunk[f"ResBlk_{i}"])
+    _conv(out, f"{prefix}.{repeat + 2}", trunk["Conv_1"])
+    return repeat
+
+
 def style_encoder_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
     """``models.stargan.StyleEncoder`` params -> the port's state_dict."""
     out: dict[str, torch.Tensor] = {}
-    trunk = tree["_ConvTrunk_0"]
-    repeat = _count(trunk, "ResBlk_")
-    _conv(out, "shared.0", trunk["Conv_0"])
-    for i in range(repeat):
-        _resblk(out, f"shared.{1 + i}", trunk[f"ResBlk_{i}"])
-    _conv(out, f"shared.{repeat + 2}", trunk["Conv_1"])
+    _conv_trunk(out, "shared", tree["_ConvTrunk_0"])
     for d in range(_count(tree, "Dense_")):
         _linear(out, f"unshared.{d}", tree[f"Dense_{d}"])
+    return out
+
+
+def discriminator_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
+    """``models.stargan.Discriminator`` params -> the port's state_dict:
+    the trunk under ``main``, the dense head as the final 1x1 conv."""
+    out: dict[str, torch.Tensor] = {}
+    repeat = _conv_trunk(out, "main", tree["_ConvTrunk_0"])
+    kernel = np.asarray(tree["Dense_0"]["kernel"])  # (C, D)
+    out[f"main.{repeat + 4}.weight"] = _t(kernel.T[:, :, None, None])
+    out[f"main.{repeat + 4}.bias"] = _t(tree["Dense_0"]["bias"])
+    return out
+
+
+def lpips_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
+    """``metrics.lpips.LPIPS`` params -> the port's ``LPIPS`` state_dict
+    (the reference LPIPS module's key names)."""
+    out: dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 3, 6, 8, 10)):
+        _conv(out, f"alexnet.layers.{idx}", tree["alexnet"][f"Conv_{i}"])
+    for i in range(5):
+        w = np.asarray(tree[f"lin_{i}"])  # (C, 1)
+        out[f"lpips_weights.{i}.main.1.weight"] = _t(w.T[:, :, None, None])
     return out
 
 
@@ -223,3 +257,23 @@ def load_deid_params(bundle, params) -> None:
     )
     for module, sd in pairs:
         module.load_state_dict(sd, strict=True)
+
+
+_TRAIN_STATE_DICTS = {
+    "generator": generator_state_dict,
+    "mapping_network": mapping_state_dict,
+    "style_encoder": style_encoder_state_dict,
+    "discriminator": discriminator_state_dict,
+}
+
+
+def load_train_params(state, params: Mapping[str, Tree], ema_params: Mapping[str, Tree] | None = None) -> None:
+    """Load the JAX package's GAN trees (``GANTrainState.params`` and
+    ``ema_params``, given as numpy) into a port ``train.gan.GANTrainState``,
+    strictly; the EMA nets take ``params`` where ``ema_params`` is None.
+    The optimizers are left as they are."""
+    for name, net in state.nets.items():
+        net.load_state_dict(_TRAIN_STATE_DICTS[name](params[name]), strict=True)
+    for name, net in state.ema.items():
+        tree = (ema_params or params)[name]
+        net.load_state_dict(_TRAIN_STATE_DICTS[name](tree), strict=True)

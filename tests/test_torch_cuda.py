@@ -355,3 +355,165 @@ def test_deid_path_runs_every_kernel_and_matches_cpu(dev):
     # bf16: no further from the CPU bf16 run than that run is from f32.
     gap = np.abs(out["bfloat16", "cpu"] - ref).max()
     assert np.abs(out["bfloat16", "cuda"] - out["bfloat16", "cpu"]).max() <= 1.5 * gap + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernels (the training slice).  Each kernel's
+# backward is its plain version's VJP; conv3x3's is differentiable again.
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-12)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 256, 64, 64), (4, 64, 64, 128, 256), (4, 8, 8, 512, 512),
+                                   (4, 4, 4, 512, 512)])
+def test_conv3x3_grads_and_r1_second_order_match_plain(dev, shape):
+    b, h, w, c, k = shape
+    rng = np.random.default_rng(6)
+    x = _randn(rng, (b, h, w, c)).to(dev, torch.bfloat16).requires_grad_(True)
+    wt = _randn(rng, (3, 3, c, k), 1 / math.sqrt(9 * c)).to(dev, torch.bfloat16).requires_grad_(True)
+    cot = _randn(rng, (b, h, w, k)).to(dev)
+    packed = pack_conv3x3_weight(wt.detach())
+    grads = []
+    for fn in (lambda x, w: conv3x3(x, w, packed), conv3x3_ref):
+        y = fn(x, wt)
+        assert y.grad_fn is not None
+        dx, dw = torch.autograd.grad((y.float() * cot).sum(), (x, wt), retain_graph=True)
+        # R1: the sign pattern of the nonlinearity comes from each side's own forward.
+        (dx2,) = torch.autograd.grad((torch.nn.functional.leaky_relu(y.float(), 0.2) * cot).sum(), x,
+                                     create_graph=True)
+        (r1,) = torch.autograd.grad(dx2.float().square().sum(), wt)
+        grads.append((dx, dw, r1))
+    for got, want in zip(*grads):
+        assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 256, 64), (4, 32, 32, 512), (4, 8, 8, 512)])
+def test_moments_grads_match_plain(dev, shape):
+    rng = np.random.default_rng(7)
+    x = _randn(rng, shape).to(dev, torch.bfloat16).requires_grad_(True)
+    gm, gm2 = _randn(rng, (2, shape[0], shape[-1])).to(dev)
+    m, m2 = instance_moments(x)
+    assert m.grad_fn is not None and m2.grad_fn is not None
+    (got,) = torch.autograd.grad((m * gm).sum() + (m2 * gm2).sum(), x)
+    rm, rm2 = _moments_ref(x)
+    (want,) = torch.autograd.grad((rm * gm).sum() + (rm2 * gm2).sum(), x)
+    assert _rel(got, want) < 2e-2
+
+
+def test_fftconv_and_denseblock_grads_match_plain(dev):
+    rng = np.random.default_rng(8)
+    img = _randn(rng, (2, 64, 64, 3)).to(dev).requires_grad_(True)
+    otf = torch.fft.fft2(_randn(rng, (64, 64, 3)).to(dev), dim=(0, 1))
+    ore, oim = otf.real.contiguous().requires_grad_(True), otf.imag.contiguous().requires_grad_(True)
+    cot = _randn(rng, (2, 64, 64, 3)).to(dev)
+    y = fftconv_circular(img, ore, oim)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * cot).sum(), (img, ore, oim))
+    want = torch.autograd.grad((fftconv_circular_ref(img, ore, oim) * cot).sum(), (img, ore, oim))
+    for a, w in zip(got, want):
+        assert _rel(a, w) < 1e-4
+
+    f = 256
+    x = _randn(rng, (2, 16, 16, f)).to(dev, torch.bfloat16).requires_grad_(True)
+    ks = [_randn(rng, s, 1 / math.sqrt(9 * s[2])).to(dev, torch.bfloat16).requires_grad_(True)
+          for s in ((3, 3, f, f // 2), (3, 3, f // 2, f // 4), (3, 3, f // 4, f // 4))]
+    bns = [(1 + 0.1 * _randn(rng, (c,))).to(dev) for c in (f, f, f // 2, f // 2, f // 4, f // 4)]
+    pairs = list(zip(bns[0::2], bns[1::2]))
+    cot = _randn(rng, (2, 16, 16, f)).to(dev)
+    y = fused_dense_block(x, *ks, *pairs)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y.float() * cot).sum(), (x, *ks))
+    want = torch.autograd.grad((dense_block_ref(x, *ks, *pairs).float() * cot).sum(), (x, *ks))
+    for a, w in zip(got, want):
+        assert _rel(a, w) < 2e-2
+
+
+def test_instance_norm_grad_on_the_card_matches_cpu(dev):
+    """InstanceNorm's gradient through the moments kernel: its mean and
+    variance terms reach x (they were dropped before the kernel had a
+    backward)."""
+    from ppvision_tpu_torch.models.stargan import InstanceNorm
+
+    rng = np.random.default_rng(9)
+    x = _randn(rng, (4, 64, 32, 32)).contiguous(memory_format=torch.channels_last) * 3 + 1
+    cot = _randn(rng, (4, 64, 32, 32))
+    norm = InstanceNorm(64)
+    grads = {}
+    for d in ("cpu", dev):
+        xd = x.to(d).requires_grad_(True)
+        (grads[str(d)],) = torch.autograd.grad((norm.to(d)(xd) * cot.to(d)).sum(), xd)
+    assert _rel(grads[str(dev)].cpu(), grads["cpu"]) < 1e-4
+
+
+def test_packed_weight_follows_an_optimizer_step(dev):
+    """A Conv's cached packed kernel weight is repacked after
+    ``optimizer.step()`` updates the weight in place."""
+    from ppvision_tpu_torch.models.stargan import Conv
+
+    conv = Conv(64, 64, 3, 1, 1, dtype=torch.bfloat16).to(dev)
+    opt = torch.optim.Adam(conv.parameters(), lr=1e-2, foreach=True)
+    x = torch.randn((2, 64, 16, 16), device=dev).contiguous(memory_format=torch.channels_last)
+    launches = conv3x3.launches
+    conv(x).float().square().mean().backward()
+    before = conv.packed_weight(torch.bfloat16).clone()
+    opt.step()
+    y = conv(x)
+    assert conv3x3.launches == launches + 2
+    assert not torch.equal(conv.packed_weight(torch.bfloat16), before)
+    xb = x.to(torch.bfloat16).permute(0, 2, 3, 1)
+    want = conv3x3_ref(xb, conv.weight.detach().permute(2, 3, 1, 0).to(torch.bfloat16)).permute(0, 3, 1, 2)
+    want = want + conv.bias.detach().to(torch.bfloat16)[:, None, None]
+    assert _rel(y.detach(), want) < 2e-2
+
+
+def test_train_step_runs_every_kernel_and_matches_cpu(dev):
+    """One train step at 64^2 on the card and on the CPU, same weights and
+    batch.  In f32 (TF32 off) every loss within 2e-2 and each gradient at
+    cosine >= 0.98; in bf16 the four de-id kernels launch and every loss
+    is finite.  Each run applies the CPU f32 run's gradients, so each
+    sub-step starts from the same weights everywhere (Adam's first step
+    turns a flipped near-zero gradient sign into a 2 lr move of its
+    weight).  chip_smoke.py holds the bf16 step to the CPU's own
+    bf16-vs-f32 gap."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig, TrainConfig
+    from ppvision_tpu_torch.ops import DEID_KERNELS, KERNELS
+    from ppvision_tpu_torch.train.gan import init_gan, make_train_step
+    from ppvision_tpu_torch.train.pretrained import build_aux_losses, load_frozen_nets
+
+    rng = np.random.default_rng(10)
+    batch = dict(x_src=rng.random((2, 64, 64, 3), dtype=np.float32), x_ref=rng.random((2, 64, 64, 3), dtype=np.float32),
+                 x_ref2=rng.random((2, 64, 64, 3), dtype=np.float32), y_src=np.array([0, 1]), y_ref=np.array([1, 0]),
+                 z_trg=rng.standard_normal((2, 16), dtype=np.float32),
+                 z_trg2=rng.standard_normal((2, 16), dtype=np.float32))
+    out, teacher = {}, {}
+    for dtype, d in (("float32", "cpu"), ("float32", "cuda"), ("bfloat16", "cuda")):
+        cfg = FaceDeIdConfig(model=ModelConfig(img_size=64, max_conv_dim=64, fan_input_size=64, compute_dtype=dtype),
+                             camera=CameraConfig(n=64), train=TrainConfig(flow_iters=2))
+        grads = {}
+
+        def hook(sub, by_net):
+            for net, gs in by_net.items():
+                grads[sub, net] = torch.cat([g.detach().double().flatten().cpu() for g in gs])
+            if sub not in teacher:
+                teacher[sub] = {net: [g.detach().clone() for g in gs] for net, gs in by_net.items()}
+                return None
+            return {net: [g.to(gs[0].device) for g in teacher[sub][net]] for net, gs in by_net.items()}
+
+        for fn in KERNELS.values():
+            fn.launches = 0
+        step = make_train_step(cfg, *build_aux_losses(cfg, 0, d), grad_hook=hook)
+        losses = {k: float(v) for k, v in step(init_gan(0, cfg, d), load_frozen_nets(cfg, 0, d), batch).items()}
+        out[dtype, d] = losses, grads
+        assert all(np.isfinite(v) for v in losses.values())
+        if dtype == "bfloat16":
+            assert all(KERNELS[k].launches > 0 for k in DEID_KERNELS)
+    (lc, gc), (lg, gg) = out["float32", "cpu"], out["float32", "cuda"]
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 2e-2 * max(abs(lc[k]), 1e-6), k
+    for key in gc:
+        cos = float(gg[key] @ gc[key] / (gg[key].norm() * gc[key].norm() + 1e-30))
+        assert cos >= 0.98, (key, cos)
