@@ -69,9 +69,27 @@ What it does, in order; any failure raises and exits non-zero:
    conv3x3, instats or denseblock shape went unchecked; one more step
    under ``torch.profiler`` for the device's busy share and a breakdown;
 12. one 64x64 train step on the card against the port's CPU path, in f32
-   and in bf16.
+   and in bf16;
+13. ROADMAP.md section 3's study of the bf16 ``G/ref_ds`` gap: at that
+   64x64 step and five seeds, G/ref's fakes with the four kernels, their
+   plain versions, and the kernels with one plain version at a time,
+   against f32 (``ref_ds_study``);
+14. the int8 decode's products (``ops/quant.py``, ``torch._int_mm``) at
+   every quantized decode shape: int32 accumulators bit for bit against
+   the f64 plain version, outputs bit for bit against the CPU path, and
+   their times beside the exact path's convs and the int8 bound;
+15. the int8 served run (``quant_decode=True``, 128x128 full width,
+   batch 8, R = 10): launch counts (conv3x3 13 a step), the int8 output
+   within (1e-5, 0.25) of the exact one, and the img/s of both, labelled;
+16. ``remat``: one ``FaceDeIdConfig()`` step with and without it, losses
+   bit for bit, gradients at cosine >= 0.9999, the peak device memory
+   and seconds of each;
+17. the CLI (``cli/main.py``) at ``FaceDeIdConfig()`` full width: 2
+   training iterations from folders of seeded arrays, a resumed third,
+   and ``--mode sample`` from the checkpoint.
 
-The last two lines of standard output are the kernels' JSON record and
+The last four lines of standard output are the int8 products' JSON
+record, the card's name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -410,6 +428,9 @@ CONV3X3_SHAPES = {
     (TRAIN_B, 4, 512, 512): 0,
 }
 CONV3X3_PER_STEP = sum(CONV3X3_SHAPES.values())  # 93
+# With quant_decode the decoder's 8 convs a style run in int8: the
+# encoder's 8 and the style encoder's 5 stay.
+CONV3X3_INT8_PER_STEP = CONV3X3_PER_STEP - 8 * R_STYLES  # 13
 
 
 def check_conv3x3(torch, dev) -> list[dict]:
@@ -730,14 +751,15 @@ def smooth_frames(n_frames: int, size: int, seed: int) -> np.ndarray:
 
 
 def video_path(torch, kernels) -> dict:
-    """``cli/main.py::run_video`` on seeded arrays at 256^2: de-id the
-    sequence with one fixed reference style, render the interpolation
-    video, and score temporal consistency with RAFT on kernel 5."""
+    """``cli/main.py::run_video``'s array part (``video_from_arrays``) on
+    seeded arrays at 256^2: de-id the sequence with one fixed reference
+    style, render the interpolation video on 8 sources, and score
+    temporal consistency with RAFT on kernel 5."""
+    from ppvision_tpu_torch.cli.main import video_from_arrays
     from ppvision_tpu_torch.config import FaceDeIdConfig
-    from ppvision_tpu_torch.deid import build_deid, deid_from_reference
-    from ppvision_tpu_torch.metrics.temporal import flow_consistency
+    from ppvision_tpu_torch.deid import build_deid
     from ppvision_tpu_torch.models.raft import build_raft
-    from ppvision_tpu_torch.sample import get_alphas, video_ref, write_video
+    from ppvision_tpu_torch.sample import get_alphas
 
     bundle = build_deid(0, FaceDeIdConfig(), device="cuda")
     raft = build_raft(0, "cuda", corr_levels=RAFT_LEVELS, corr_radius=RAFT_RADIUS, alternate_corr=True)
@@ -746,14 +768,9 @@ def video_path(torch, kernels) -> dict:
     n = min(8, VIDEO_T)
 
     def phase():
-        fakes = deid_from_reference(
-            bundle, srcs, refs[:1].expand(VIDEO_T, -1, -1, -1), torch.zeros(VIDEO_T, dtype=torch.long)
-        ).cpu().numpy()
-        wrote = write_video(fakes, os.path.join(OUT_DIR, "video_deid.mp4"))
-        video = video_ref(bundle, srcs[:n], refs, torch.zeros(2, dtype=torch.long), os.path.join(OUT_DIR, "video_ref.mp4"))
-        score = flow_consistency(raft, srcs, fakes, iters=RAFT_ITERS)
+        out = video_from_arrays(bundle, srcs, refs, OUT_DIR, raft, n_interp=n)
         torch.cuda.synchronize()
-        return fakes, wrote, video, score
+        return out["fakes"], out["wrote"], out["video"], out["score"]
 
     for fn in kernels.values():
         fn.launches = 0
@@ -954,13 +971,13 @@ def train_batches(cfg, n: int, batch: int, seed: int = 31) -> list[dict]:
     return out
 
 
-def build_trainer(cfg, device: str, grad_hook=None):
+def build_trainer(cfg, device: str, grad_hook=None, seed: int = 0):
     from ppvision_tpu_torch.train.gan import init_gan, make_train_step
     from ppvision_tpu_torch.train.pretrained import build_aux_losses, load_frozen_nets
 
-    state = init_gan(0, cfg, device)
-    frozen = load_frozen_nets(cfg, 0, device)
-    lpips_fn, flow_fn = build_aux_losses(cfg, 0, device)
+    state = init_gan(seed, cfg, device)
+    frozen = load_frozen_nets(cfg, seed, device)
+    lpips_fn, flow_fn = build_aux_losses(cfg, seed, device)
     return state, frozen, make_train_step(cfg, lpips_fn, flow_fn, grad_hook=grad_hook)
 
 
@@ -1066,9 +1083,10 @@ def train_path(torch, kernels, card: str) -> dict:
     return dict(launches=totals, seconds=seconds)
 
 
-def plain_kernels():
+def plain_kernels(only=None):
     """Point the names the modules call the four de-id kernels by at
-    their plain versions; returns undo."""
+    their plain versions (only the kernel named ``only``, where given);
+    returns undo."""
     from ppvision_tpu_torch.models import fan, stargan
     from ppvision_tpu_torch.ops import denseblock, fftconv, instats, winograd
     from ppvision_tpu_torch.optics import fourier
@@ -1079,10 +1097,12 @@ def plain_kernels():
     def dense(x, k1, k2, k3, *bn):
         return denseblock._plain(x, k1, k2, k3, *denseblock._flat_bn(bn))
 
-    names = [(stargan, "conv3x3", conv), (stargan, "instance_moments", instats._moments_ref),
-             (fan, "fused_dense_block", dense), (fourier, "fftconv_circular", fftconv.fftconv_circular_ref)]
-    inner = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
-    for mod, name, fn in names:
+    names = {"conv3x3": (stargan, "conv3x3", conv), "instats": (stargan, "instance_moments", instats._moments_ref),
+             "denseblock": (fan, "fused_dense_block", dense),
+             "fftconv": (fourier, "fftconv_circular", fftconv.fftconv_circular_ref)}
+    chosen = [names[only]] if only is not None else list(names.values())
+    inner = [(mod, name, getattr(mod, name)) for mod, name, _ in chosen]
+    for mod, name, fn in chosen:
         setattr(mod, name, fn)
 
     def undo():
@@ -1090,6 +1110,17 @@ def plain_kernels():
             setattr(mod, name, fn)
 
     return undo
+
+
+def small_train_cfg(dtype: str):
+    """The 64^2 train configuration of ``train_gpu_vs_cpu``: max_conv_dim
+    64, FAN at 64, camera n = 64, RAFT at 3 iterations."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig, TrainConfig
+
+    return FaceDeIdConfig(
+        model=ModelConfig(img_size=64, max_conv_dim=64, fan_input_size=64, compute_dtype=dtype),
+        camera=CameraConfig(n=64), train=TrainConfig(flow_iters=3),
+    )
 
 
 def train_gpu_vs_cpu(torch, kernels) -> None:
@@ -1112,14 +1143,7 @@ def train_gpu_vs_cpu(torch, kernels) -> None:
     differences, so in bf16 its gradient is mostly rounding noise, and
     ``G/ref_ds`` (the mean of a difference of two fakes) moves between
     bf16 runs by more than the f32 bound."""
-    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig, TrainConfig
-
-    def cfg(dtype):
-        return FaceDeIdConfig(
-            model=ModelConfig(img_size=64, max_conv_dim=64, fan_input_size=64, compute_dtype=dtype),
-            camera=CameraConfig(n=64), train=TrainConfig(flow_iters=3),
-        )
-
+    cfg = small_train_cfg
     batch = train_batches(cfg("float32"), 1, 2, seed=37)[0]
     runs, teacher = {}, {}
     for name, dtype, dev in (("cpu16", "bfloat16", "cpu"), ("card16", "bfloat16", "cuda"),
@@ -1173,6 +1197,438 @@ def train_gpu_vs_cpu(torch, kernels) -> None:
         raise AssertionError(f"the train step on the card departs from the CPU's: {bad}")
 
 
+STUDY_SEEDS = (0, 1, 2, 3, 4)
+STUDY_RUNS = ("plain", "f32", "kernels", "plain:conv3x3", "plain:instats", "plain:denseblock", "plain:fftconv")
+BF16_RUNS = tuple(r for r in STUDY_RUNS if r != "f32")
+
+
+def ref_ds_study(torch, kernels, device: str = "cuda") -> dict:
+    """ROADMAP.md section 3's open item: is the bf16 train step's
+    ``G/ref_ds`` on the card, 2.4e-2 from f32 with the kernels against
+    4.1e-3 with their plain versions (``train_gpu_vs_cpu``), a fault or
+    rounding?  At ``train_gpu_vs_cpu``'s configuration and batch size
+    (64^2, B = 2), for each seed (weights and batch): one step on the card
+    in f32 (the reference), in bf16 with the plain versions (the teacher:
+    every run applies its gradients, so the G/ref sub-step starts from the
+    same weights in all), with the four kernels, and with the kernels but
+    one plain version ("plain:NAME": NAME's plain version, the other
+    three kernels).  Captures the G/ref sub-step's ``x_fake``
+    and ``x_fake2`` (the generator's first two calls after the G/latent
+    update) and prints, per seed and run, their distances from the f32
+    run's and from the plain run's and ``G/ref_ds``'s.  The kernel run is
+    a fault if it is farther from f32 than 1.5x the plain run at every
+    seed, on ``x_fake`` and on ``G/ref_ds`` both."""
+    rows = {}
+    for seed in STUDY_SEEDS:
+        teacher, fakes, ds = {}, {}, {}
+        for run in STUDY_RUNS:
+            dtype = "float32" if run == "f32" else "bfloat16"
+            cfg = small_train_cfg(dtype)
+            batch = train_batches(cfg, 1, 2, seed=100 + seed)[0]
+            phase, got = {"ref": False}, []
+
+            def hook(sub, by_net):
+                phase["ref"] = sub == "G/latent"
+                if run == "plain":
+                    teacher[sub] = {net: [g.detach().clone() for g in gs] for net, gs in by_net.items()}
+                    return None
+                return teacher[sub]
+
+            def capture(module, args, out):
+                if phase["ref"] and len(got) < 2:
+                    got.append(out.detach().float())
+
+            undo = plain_kernels() if run == "plain" else (
+                plain_kernels(run.split(":")[1]) if run.startswith("plain:") else (lambda: None))
+            try:
+                state, frozen, step = build_trainer(cfg, device, grad_hook=hook, seed=seed)
+                handle = state.nets["generator"].register_forward_hook(capture)
+                losses = step(state, frozen, batch)
+                handle.remove()
+            finally:
+                undo()
+            fakes[run], ds[run] = got, float(losses["G/ref_ds"])
+        def dist(a, b):
+            return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+        for run in BF16_RUNS:
+            rows[seed, run] = dict(
+                x_fake_vs_f32=dist(fakes[run][:1], fakes["f32"][:1]),
+                x_fake2_vs_f32=dist(fakes[run][1:], fakes["f32"][1:]),
+                vs_plain=dist(fakes[run], fakes["plain"]) if run != "plain" else 0.0,
+                ref_ds_rel=abs(ds[run] - ds["f32"]) / abs(ds["f32"]),
+            )
+            print(f"ref_ds study seed {seed} {run}: " + json.dumps(rows[seed, run]))
+    outlier = {key: all(rows[s, "kernels"][key] > 1.5 * rows[s, "plain"][key] for s in STUDY_SEEDS)
+               for key in ("x_fake_vs_f32", "x_fake2_vs_f32", "ref_ds_rel")}
+    worst = {run: {key: max(rows[s, run][key] for s in STUDY_SEEDS) for key in rows[STUDY_SEEDS[0], run]}
+             for run in BF16_RUNS}
+    print(f"ref_ds study: the kernel run farther from f32 than 1.5x the plain run at every seed: {outlier}; "
+          f"worst over seeds {json.dumps(worst)}")
+    if outlier["x_fake_vs_f32"] and outlier["ref_ds_rel"]:
+        raise AssertionError("the bf16 kernel run is the outlier on G/ref's x_fake and G/ref_ds at every seed")
+    return rows
+
+
+INT8_TOPS = 1979e12  # dense int8 tensor-core peak (NVIDIA's data sheet, SXM)
+
+
+def int8_decode_shapes() -> dict:
+    """(B, H, C, O, up) of every int8 product the quantized decoder runs
+    (H the input's side; ``up`` the nearest-up2x conv), with its calls a
+    served de-id step (R = 10 styles, decode at the source batch of 8)
+    at 128^2, and the 256^2 generator's at B = 4 (0 a served step)."""
+    shapes = {}
+    for b, img, per_style in ((SERVE_BATCH, IMG, R_STYLES), (TRAIN_B, VIDEO_IMG, 0)):
+        rn = int(math.log2(img)) - 3
+        dims = [2**14 // img]
+        for _ in range(rn):
+            dims.append(min(2 * dims[-1], 512))
+        h = img >> rn
+        key = (b, h, dims[-1], dims[-1], False)
+        shapes[key] = shapes.get(key, 0) + 4 * per_style
+        for i in reversed(range(rn)):
+            shapes[b, h, dims[i + 1], dims[i], True] = per_style
+            h *= 2
+            key = (b, h, dims[i], dims[i], False)
+            shapes[key] = shapes.get(key, 0) + per_style
+    return shapes
+
+
+def int8_bound(x, o: int, up: bool) -> tuple[float, str]:
+    """x read and the output written in bf16, the int8 weights, 2 x the
+    MACs at the int8 rate."""
+    b, h, w, c = x.shape
+    taps, outs = (16, 4 * b * h * w) if up else (9, b * h * w)
+    macs = outs * o * c * (4 if up else 9)
+    return bound(2 * x.numel() + 2 * outs * o + taps * c * o + 4 * o, 2 * macs, INT8_TOPS)
+
+
+def check_int8(torch, dev) -> list[dict]:
+    """The int8 decode's products (``ops/quant.py``, ``torch._int_mm``; no
+    Pallas kernel) at every shape of ``int8_decode_shapes``: the int32
+    accumulators bit for bit against the plain f64 version, the bf16
+    outputs bit for bit against the CPU path's on the same inputs, and
+    the time of the whole int8 conv (quantize, products, rescale; weights
+    quantized once, as the modules cache them) and its device time (all
+    its kernels, from the profiler) beside the exact path's
+    conv at the same shape: the conv3x3 kernel and ``F.conv2d``
+    (channels_last) for a 3x3 conv, the fused ``conv_transpose2d`` for
+    the up-conv; and its int8 bound.  One record for each kind at the
+    de-id path's 128^2 shape."""
+    import torch.nn.functional as F
+
+    from ppvision_tpu_torch.ops import quant
+    from ppvision_tpu_torch.ops.fusedconv import conv3x3_nearest_up2x
+    from ppvision_tpu_torch.ops.winograd import conv3x3, pack_conv3x3_weight
+
+    g = torch.Generator().manual_seed(6)
+    records, step = [], {"int8_ms": 0.0, "exact_ms": 0.0}
+    for (b, h, c, o, up), per_step in int8_decode_shapes().items():
+        x = torch.randn((b, h, h, c), generator=g).to(dev, torch.bfloat16)
+        k = torch.randn((3, 3, c, o), generator=g) / math.sqrt(9 * c)
+        kd = k.to(dev)
+        wq = (quant.quantize_up2x_weight if up else quant.quantize_weight_per_oc)(kd)
+        fn = quant.int8_conv3x3_nearest_up2x if up else quant.int8_conv
+        acc_mm = quant.int8_up2x_acc_mm if up else quant.int8_conv_acc_mm
+        acc_ref = quant.int8_up2x_acc_ref if up else quant.int8_conv_acc_ref
+        xq, _ = quant.quantize_dynamic(x)
+        same_acc = torch.equal(acc_mm(xq, wq[0]), acc_ref(xq, wq[0]))
+        got = fn(x, kd, wq)
+        same_cpu = torch.equal(got.cpu(), fn(x.cpu(), k))
+        name = "int8_conv3x3_nearest_up2x" if up else "int8_conv"
+        if not (same_acc and same_cpu):
+            raise AssertionError(f"{name} at {(b, h, c, o)}: accumulators equal the f64 version's: {same_acc}; "
+                                 f"outputs equal the CPU path's: {same_cpu}")
+        ms = cuda_ms(lambda: fn(x, kd, wq))
+        busy_us = device_us(lambda: fn(x, kd, wq), "")  # every kernel of a call
+        x_cl = x.permute(0, 3, 1, 2)
+        if up:
+            exact = cuda_ms(lambda: conv3x3_nearest_up2x(x_cl, kd.permute(3, 2, 0, 1)))
+            line = f"conv_transpose2d {exact:.4f}"
+        else:
+            wp = pack_conv3x3_weight(kd.to(torch.bfloat16))
+            w_oihw = kd.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            exact = cuda_ms(lambda: conv3x3(x, wp))
+            lib = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
+            line = f"conv3x3 kernel {exact:.4f}, F.conv2d {lib:.4f}"
+        bms, by = int8_bound(x, o, up)
+        step["int8_ms"] += per_step * ms
+        step["exact_ms"] += per_step * exact
+        print(f"{name} B={b} {h}x{h} {c}->{o}: {ms:.4f} ms, {busy_us:.1f} us of device time ({line}; int8 bound "
+              f"{bms:.4f} by {by}; {per_step} a served step); accumulators and outputs bit for bit")
+        if (b, h) == (SERVE_BATCH, 64):
+            records.append(dict(
+                name=name, route="torch._int_mm", source="ppvision_tpu_torch/ops/quant.py",
+                replaces=f"ppvision_tpu/ops/quant.py:{100 if up else 80} (lax conv; no pl.pallas_call, not a port of a "
+                         "Pallas kernel)",
+                max_abs_err=0.0, path="int8", ms=ms, plain_ms=cuda_ms(lambda: acc_ref(xq, wq[0]), iters=5, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=exact if up else lib, shape=[b, h, h, c, o],
+            ))
+    print(f"int8 products over a served int8 step's launches: {step['int8_ms']:.4f} ms against the exact path's "
+          f"{step['exact_ms']:.4f} ms (conv3x3 kernel and fused up-convs)")
+    return records
+
+
+def serve_int8(torch, kernels, card: str) -> dict:
+    """``ModelConfig(img_size=128, quant_decode=True)`` at full width
+    through ``DeIdServer`` (batch 8, R = 10), the counts set to 0 just
+    before and read just after: the four de-id kernels as in the exact
+    served run but conv3x3 ``CONV3X3_INT8_PER_STEP`` times a step (the
+    decoder's 8 a style went to int8), and the int8 products as often as
+    ``int8_decode_shapes`` says.  Then the int8 output against the exact
+    output on the same weights and inputs (``deid_multi_style``, B = 8),
+    held to ``1e-5 < rel < 0.25`` (``tests/test_quant.py``), and the
+    img/s of both, labelled, at B = 8 and 32 in this call."""
+    import dataclasses
+
+    from ppvision_tpu_torch.deid import build_deid, deid_multi_style
+    from ppvision_tpu_torch.ops import quant
+    from ppvision_tpu_torch.serve import DeIdServer
+
+    cfg = config("bfloat16")
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, quant_decode=True))
+    qbundle = build_deid(0, qcfg, device="cuda")
+    rng = np.random.default_rng(11)
+    x_ref = rng.random((R_STYLES, IMG, IMG, 3), dtype=np.float32)
+    y_ref = np.arange(R_STYLES) % 2
+    server = DeIdServer(qbundle, x_ref, y_ref, batch_size=SERVE_BATCH, depth=2)
+    server.warmup()
+    requests = [rng.random((IMG, IMG, 3), dtype=np.float32) for _ in range(3 * SERVE_BATCH - 3)]
+    counted = {**kernels, "int8_conv": quant.int8_conv_acc, "int8_up2x": quant.int8_up2x_acc}
+    for fn in counted.values():
+        fn.launches = 0
+    outs = list(server.serve(requests))
+    launches = {name: fn.launches for name, fn in counted.items()}
+    steps = -(-len(requests) // SERVE_BATCH)
+    print(f"int8 served {len(outs)} requests; launches {launches}")
+    shapes = int8_decode_shapes()
+    want = dict(
+        conv3x3=steps * CONV3X3_INT8_PER_STEP, instats=steps * INSTATS_PER_STEP,
+        denseblock=steps * DENSEBLOCK_PER_STEP,
+        int8_conv=steps * sum(n for k, n in shapes.items() if not k[-1]),
+        int8_up2x=steps * sum(n for k, n in shapes.items() if k[-1]),
+    )
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or launches["fftconv"] == 0:
+        raise AssertionError(f"int8 served run: launches (got, want) {bad}, fftconv {launches['fftconv']}")
+    if any(o.shape != (R_STYLES, IMG, IMG, 3) or not np.isfinite(o).all() for o in outs):
+        raise AssertionError("int8 served run: bad output")
+    bundle = build_deid(0, cfg, device="cuda")
+    rates = {}
+    for b in (SERVE_BATCH, 32):
+        xs, xr, yr = (t.cuda() for t in seeded_inputs(b, R_STYLES))
+        if b == SERVE_BATCH:
+            ye, yq = deid_multi_style(bundle, xs, xr, yr), deid_multi_style(qbundle, xs, xr, yr)
+            rel = float(torch.linalg.vector_norm(yq - ye) / torch.linalg.vector_norm(ye))
+            print(f"int8 against exact output, B={b} R={R_STYLES}: rel {rel:.4e} (bound 1e-5 < rel < 0.25)")
+            if not 1e-5 < rel < 0.25 or not bool(torch.isfinite(yq).all()):
+                raise AssertionError(f"int8 decode output departs from the exact output: rel {rel}")
+        for tag, bd in (("exact", bundle), ("int8", qbundle), ("int8 again", qbundle), ("exact again", bundle)):
+            ms = cuda_ms(lambda: deid_multi_style(bd, xs, xr, yr), iters=3, warmup=1)
+            rates.setdefault((tag.split()[0], b), []).append(b * R_STYLES / (ms / 1e3))
+    print(json.dumps({"deid_img_s": {f"{tag} B={b}": v for (tag, b), v in rates.items()},
+                      "note": "int8 is the lossy opt-in mode (quant_decode); exact is the default path",
+                      "R": R_STYLES, "img": IMG, "card": card}))
+    return launches
+
+
+def remat_check(torch, card: str) -> None:
+    """One ``FaceDeIdConfig()`` step (256^2, B = 4) with ``remat=True``
+    against the same step without it, from the same seeded state and
+    batch, with cuDNN's deterministic algorithms for the phase; a second
+    plain run shows what is left of run-to-run noise (the flow loss's
+    ``grid_sample`` backward adds with atomics).  Every run applies the
+    first run's gradients, so each sub-step starts from the same weights.
+    Losses bit for bit (the forwards are deterministic); every gradient at
+    cosine >= 0.9999; the step's peak device memory above what was
+    allocated before it, and the seconds of a second, steady step."""
+    import dataclasses
+
+    from ppvision_tpu_torch.config import FaceDeIdConfig
+
+    batches = train_batches(FaceDeIdConfig(), 2, TRAIN_B, seed=41)
+    teacher, grads, out = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run in ("plain", "plain again", "remat"):
+            cfg = FaceDeIdConfig()
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=run == "remat"))
+            first = {"on": True}
+
+            def hook(sub, by_net):
+                if not first["on"]:
+                    return None
+                grads[run, sub] = {net: [g.detach().float().clone() for g in gs] for net, gs in by_net.items()}
+                if run == "plain":
+                    teacher[sub] = grads[run, sub]
+                    return None
+                return teacher[sub]
+
+            state, frozen, step = build_trainer(cfg, "cuda", grad_hook=hook)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses = {k: float(v) for k, v in step(state, frozen, batches[0]).items()}
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            first["on"] = False
+            t0 = time.perf_counter()
+            step(state, frozen, batches[1])
+            torch.cuda.synchronize()
+            out[run] = dict(losses=losses, peak_gib=peak / 2**30, steady_s=time.perf_counter() - t0)
+            del state, frozen, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def cosines(run):
+        cos = {}
+        for (r, sub), by_net in grads.items():
+            if r == run:
+                for net, gs in by_net.items():
+                    a = torch.cat([t.flatten() for t in gs]).double()
+                    b = torch.cat([t.flatten() for t in grads["plain", sub][net]]).double()
+                    cos[f"{sub}:{net}"] = float(a @ b / (a.norm() * b.norm() + 1e-30))
+        return cos
+
+    diff = {run: {k: abs(out[run]["losses"][k] - v) for k, v in out["plain"]["losses"].items()
+                  if out[run]["losses"][k] != v} for run in ("plain again", "remat")}
+    cos = {run: cosines(run) for run in ("plain again", "remat")}
+    print(json.dumps({"remat": {k: {kk: vv for kk, vv in v.items() if kk != "losses"} for k, v in out.items()},
+                      "losses_differing_from_plain": diff, "grad_cosine_to_plain": cos, "B": TRAIN_B,
+                      "img": VIDEO_IMG, "card": card}))
+    if diff["remat"]:
+        raise AssertionError(f"remat: losses differ from the plain step's: {diff['remat']}")
+    low = {k: v for k, v in cos["remat"].items() if not v >= 0.9999}
+    if low:
+        raise AssertionError(f"remat: gradients depart from the plain step's: {low}")
+
+
+CLI_DIR = os.path.join(OUT_DIR, "cli")
+CLI_FACES = 6  # images a class folder
+CLI_FACE_HW = (320, 288)  # face-sized, not square: the native crop/resize works on every batch
+
+
+def write_face_folders(root: str, seed: int, hw=CLI_FACE_HW) -> None:
+    """Seeded uint8 (H, W, 3) arrays, saved with ``np.save`` under image
+    names in two class folders (the card's machine has no PIL to write or
+    read image files)."""
+    rng = np.random.default_rng(seed)
+    for cls in ("female", "male"):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        for i in range(CLI_FACES):
+            with open(os.path.join(root, cls, f"{i:03d}.png"), "wb") as f:
+                np.save(f, rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+
+
+def cli_phase(torch, kernels, card: str) -> dict:
+    """``cli/main.py`` on the card at ``FaceDeIdConfig()`` full width
+    (256^2, B = 4): ``--mode train`` for 2 iterations from two class
+    folders (saving at step 2), a second ``main`` that resumes at step 2
+    for a third, then ``--mode sample`` from that checkpoint directory with
+    ``--result_dir ''`` (no PNGs: the machine has no PIL) on folders of
+    256^2 faces (``eval_batches`` resizes other sizes with PIL).  Only the image
+    decoder (``data/face.py::_load_rgb``) is swapped for a reader of the
+    arrays ``write_face_folders`` saved; the listing, the balanced
+    sampling, the native crop/resize/flip and ``eval_batches`` are the
+    package's own, and the native library must build.  Each iteration's
+    seconds and launches (the counts set to 0 just before it and read
+    just after) are printed; the sample's (R, B, H, W, 3) outputs must be
+    finite and equal ``deid_from_reference`` on the restored weights."""
+    import shutil
+
+    from ppvision_tpu_torch.cli import main as cli
+    from ppvision_tpu_torch.data import face, native
+    from ppvision_tpu_torch.deid import build_deid, deid_from_reference
+    from ppvision_tpu_torch.ops import DEID_KERNELS
+    from ppvision_tpu_torch.train.pretrained import restore_deid_params
+    from ppvision_tpu_torch.utils.checkpoint import StepCheckpoints
+
+    if not native.available():
+        raise AssertionError("the native transform library (native/transform.cpp) did not build")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    train_dir, ref_dir, src256, ref256, ck = (os.path.join(CLI_DIR, d) for d in ("train", "ref", "src256", "ref256",
+                                                                                  "ckpt"))
+    write_face_folders(train_dir, 51)
+    write_face_folders(ref_dir, 52)
+    write_face_folders(src256, 53, (256, 256))
+    write_face_folders(ref256, 54, (256, 256))
+    iters = []
+    inner_step, inner_load = cli.make_train_step, face._load_rgb
+
+    def timed_step(*args, **kw):
+        step = inner_step(*args, **kw)
+
+        def run(state, frozen, batch):
+            for fn in kernels.values():
+                fn.launches = 0
+            at = state.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, frozen, batch)
+            torch.cuda.synchronize()
+            iters.append(dict(step=at, seconds=time.perf_counter() - t0,
+                              launches={k: fn.launches for k, fn in kernels.items()},
+                              batch={k: list(v.shape) for k, v in batch.items()}))
+            print(f"cli train iteration from step {at}: {iters[-1]['seconds']:.3f} s; "
+                  f"launches {iters[-1]['launches']}; batch {iters[-1]['batch']}")
+            bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+            if bad:
+                raise AssertionError(f"cli train: losses not finite: {bad}")
+            return metrics
+
+        return run
+
+    common = ["--train_img_dir", train_dir, "--ref_dir", ref_dir, "--checkpoint_save_dir", ck,
+              "--checkpoint_dir", os.path.join(CLI_DIR, "none"), "--save_every", "2", "--debug_every", "0",
+              "--print_every", "1", "--device", "cuda"]
+    cli.make_train_step, face._load_rgb = timed_step, np.load
+    try:
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train", "--total_iters", "2", *common])
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train", "--total_iters", "3", *common])
+        resume_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = cli.main(["--mode", "sample", "--src_dir", src256, "--ref_dir", ref256,
+                         "--checkpoint_save_dir", ck, "--result_dir", "", "--val_batch_size", str(TRAIN_B),
+                         "--device", "cuda"])
+        sample_s = time.perf_counter() - t0
+        src = next(face.eval_batches(src256, 256, TRAIN_B))
+        ref = next(face.eval_batches(ref256, 256, TRAIN_B))
+    finally:
+        cli.make_train_step, face._load_rgb = inner_step, inner_load
+    print(f"cli: train 2 iterations {first_s:.1f} s (set-up included), resumed run {resume_s:.1f} s, "
+          f"sample {sample_s:.1f} s; iterations {[(i['step'], round(i['seconds'], 3)) for i in iters]}")
+    if [i["step"] for i in iters] != [0, 1, 2]:
+        raise AssertionError(f"cli train: iterations started at steps {[i['step'] for i in iters]}, not 0, 1, 2")
+    print("cli: the second run resumed at step 2")
+    missing = [(i["step"], k) for i in iters for k in DEID_KERNELS if i["launches"][k] == 0]
+    ckpts = StepCheckpoints(ck)
+    groups = [g for g in ("nets", "nets_ema", "optims", "camera") if not os.path.exists(ckpts.path(2, g))]
+    if missing or groups or ckpts.latest_step("nets") != 2:
+        raise AssertionError(f"cli train: kernels not launched {missing}; groups missing at step 2 {groups}")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(["--mode", "sample", "--checkpoint_save_dir", ck]))
+    bundle = restore_deid_params(build_deid(cfg.train.seed, cfg, "cuda"), cfg)
+    saved = ckpts.load(2, "nets_ema")
+    same = all(torch.equal(v.cpu(), saved[n][k].cpu()) for n in saved for k, v in getattr(bundle, n).state_dict().items())
+    want = np.stack([deid_from_reference(bundle, torch.from_numpy(src), torch.from_numpy(ref[r : r + 1]).expand(src.shape),
+                                         torch.zeros(src.shape[0], dtype=torch.long)).cpu().numpy()
+                     for r in range(ref.shape[0])])
+    got = outs[0]
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+    print(f"cli sample: outputs {got.shape}, finite {bool(np.isfinite(got).all())}, restored nets_ema equal the "
+          f"saved: {same}; max |sample - deid_from_reference| {err:.3e}")
+    if not (same and np.isfinite(got).all() and err <= 1e-3 * max(1.0, float(np.abs(want).max()))):
+        raise AssertionError("cli sample: outputs or restored weights wrong")
+    print(json.dumps({"cli_train_iteration_s": [i["seconds"] for i in iters], "B": TRAIN_B, "img": 256,
+                      "card": card}))
+    return dict(launches={k: sum(i["launches"][k] for i in iters) for k in kernels}, iters=iters)
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
@@ -1215,6 +1671,11 @@ def main(argv=None) -> int:
     check_train_grads(torch, dev)
     train = train_path(torch, KERNELS, card)
     train_gpu_vs_cpu(torch, KERNELS)
+    ref_ds_study(torch, KERNELS)
+    int8_records = check_int8(torch, dev)
+    int8_launches = serve_int8(torch, KERNELS, card)
+    remat_check(torch, card)
+    cli_phase(torch, KERNELS, card)
 
     # A record takes its launches from the run of its path: the served
     # run, the video phase or the train phase's 3 steps.
@@ -1223,6 +1684,11 @@ def main(argv=None) -> int:
         r["launches"] = runs[r["path"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
+    # The int8 decode's products (torch._int_mm, no Pallas kernel) on a
+    # line of their own, their launches from the int8 served run.
+    for r in int8_records:
+        r["launches"] = int8_launches["int8_up2x" if r["name"].endswith("up2x") else "int8_conv"]
+    print(json.dumps({"int8_products": [{k: r[k] for k in keys} for r in int8_records], "card": card}))
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {

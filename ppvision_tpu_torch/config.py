@@ -26,7 +26,9 @@ class ModelConfig:
     fan_input_size: int = 256
     # Compute dtype of the conv nets (params stay float32).
     compute_dtype: str = "bfloat16"
-    # int8 decoder serving mode: not ported yet; the port raises if set.
+    # Opt-in int8 generator-decoder serving mode (ops/quant.py): LOSSY
+    # (dynamic per-sample activation / per-channel weight quantization).
+    # Inference-only; training ignores it.
     quant_decode: bool = False
 
 
@@ -71,8 +73,9 @@ class TrainConfig:
     use_lpips: bool = True
     use_flow: bool = True
     flow_iters: int = 20  # RAFT refinement iterations inside the loss
-    # Recompute activations in the backward pass: not ported yet; the
-    # trainer raises if set.
+    # Recompute the generator's and discriminator's activations in the
+    # backward pass (torch.utils.checkpoint): the same values for about
+    # one more forward of work and a lower peak of device memory.
     remat: bool = False
 
 

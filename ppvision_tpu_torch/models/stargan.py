@@ -19,6 +19,12 @@ stride-1 3x3 conv with channels % 16 = 0 in bf16 runs
 the encoder's skip mean run :func:`ops.instats.instance_moments`.
 Both carry gradients: their backward is the plain version's VJP, and
 conv3x3's is differentiable again (R1's gradient of a gradient).
+
+``Generator(quant_decode=True)`` runs the decoder's 3x3 convs and
+nearest-up2x convs in int8 (``ops/quant.py``), the opt-in lossy serving
+mode of ``ppvision_tpu/models/stargan.py::_QuantConv`` and
+``_ResampleConv3x3(quant=True)``, over the same state_dict; the decoder's
+1x1 shortcut and ``to_rgb`` stay exact.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 from ..ops.fusedconv import conv3x3_avgpool2x, conv3x3_nearest_up2x
 from ..ops.image import avg_pool_2x, resize_bilinear, upsample_nearest_2x
 from ..ops.instats import instance_moments
+from ..ops.quant import int8_conv, int8_conv3x3_nearest_up2x, quantize_up2x_weight, quantize_weight_per_oc
 from ..ops.winograd import conv3x3, conv3x3_supported, pack_conv3x3_weight
 
 __all__ = [
@@ -98,6 +105,8 @@ class Conv(nn.Conv2d):
         self._hwio_key = None
         self._hwio = None
         self._packed = None
+        self._quant_key = None
+        self._quant = None
 
     def hwio_weight(self, dtype) -> torch.Tensor:
         key = (self.weight._version, self.weight.data_ptr(), dtype)
@@ -113,6 +122,17 @@ class Conv(nn.Conv2d):
         if self._packed is None:
             self._packed = pack_conv3x3_weight(hwio)
         return self._packed
+
+    def quantized_weight(self, up: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 decode's (int8 HWIO kernel, per-output-channel scale)
+        of this 3x3 conv, or with ``up`` of its nearest-up2x 4x4 kernel;
+        made once per weight version."""
+        key = (self.weight._version, self.weight.data_ptr(), up)
+        if key != self._quant_key:
+            hwio = self.weight.detach().permute(2, 3, 1, 0)
+            self._quant = quantize_up2x_weight(hwio) if up else quantize_weight_per_oc(hwio)
+            self._quant_key = key
+        return self._quant
 
     def _kernel_eligible(self, x: torch.Tensor) -> bool:
         return (
@@ -146,6 +166,17 @@ def _resample_conv(x: torch.Tensor, conv: Conv, mode: str) -> torch.Tensor:
     x = x.to(dt)
     fn = conv3x3_nearest_up2x if mode == "up" else conv3x3_avgpool2x
     y = fn(x, conv.weight)
+    return y + conv.bias.to(y.dtype)[:, None, None]
+
+
+def _quant_conv(x: torch.Tensor, conv: Conv, up: bool = False) -> torch.Tensor:
+    """Int8 stand-in of a stride-1 SAME 3x3 conv or, with ``up``, of the
+    nearest-up2x conv (ops/quant.py) on the conv's own weights; bias
+    added after in the compute dtype."""
+    dt = conv.compute_dtype or x.dtype
+    fn = int8_conv3x3_nearest_up2x if up else int8_conv
+    y = fn(x.to(dt).permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0), conv.quantized_weight(up))
+    y = y.permute(0, 3, 1, 2)
     return y + conv.bias.to(y.dtype)[:, None, None]
 
 
@@ -225,12 +256,14 @@ class AdaIN(nn.Module):
 class AdainResBlk(nn.Module):
     """Style-modulated residual block with optional 2x nearest upsample;
     with ``w_hpf != 0`` the output is the residual branch alone
-    (reference model.py:105-109)."""
+    (reference model.py:105-109).  ``quant`` runs its two 3x3 convs (the
+    first fused with the upsample) in int8."""
 
-    def __init__(self, dim_in, dim_out, style_dim=64, w_hpf=0.0, upsample=False, dtype=None):
+    def __init__(self, dim_in, dim_out, style_dim=64, w_hpf=0.0, upsample=False, dtype=None, quant=False):
         super().__init__()
         self.w_hpf = w_hpf
         self.upsample = upsample
+        self.quant = quant
         self.learned_sc = dim_in != dim_out
         self.conv1 = Conv(dim_in, dim_out, 3, 1, 1, dtype=dtype)
         self.conv2 = Conv(dim_out, dim_out, 3, 1, 1, dtype=dtype)
@@ -241,9 +274,12 @@ class AdainResBlk(nn.Module):
 
     def forward(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         r = leaky_relu(self.norm1(x, s))
-        r = _resample_conv(r, self.conv1, "up") if self.upsample else self.conv1(r)
+        if self.quant:
+            r = _quant_conv(r, self.conv1, up=self.upsample)
+        else:
+            r = _resample_conv(r, self.conv1, "up") if self.upsample else self.conv1(r)
         r = leaky_relu(self.norm2(r, s))
-        r = self.conv2(r)
+        r = _quant_conv(r, self.conv2) if self.quant else self.conv2(r)
         if self.w_hpf == 0:
             sc = x
             if self.learned_sc:
@@ -278,9 +314,11 @@ def _channel_dims(img_size: int, max_conv_dim: int, num_blocks: int) -> list[int
 class Generator(nn.Module):
     """Encoder/decoder with style-modulated decoding and heatmap-guided
     high-pass skips at 32/64/128 feature resolutions, split into
-    ``encode`` (style-independent) and ``decode`` (per style)."""
+    ``encode`` (style-independent) and ``decode`` (per style).
+    ``quant_decode`` runs the decoder's 3x3 convs in int8 (the opt-in
+    lossy serving mode; the same state_dict)."""
 
-    def __init__(self, img_size=256, style_dim=64, max_conv_dim=512, w_hpf=1.0, dtype=None):
+    def __init__(self, img_size=256, style_dim=64, max_conv_dim=512, w_hpf=1.0, dtype=None, quant_decode=False):
         super().__init__()
         self.w_hpf = w_hpf
         self.compute_dtype = dtype
@@ -294,9 +332,10 @@ class Generator(nn.Module):
         # same names are this class's methods, so the lists are
         # registered under those names and read through ``_modules``.
         self._modules["encode"] = nn.ModuleList(enc)
-        dec = [AdainResBlk(dims[-1], dims[-1], style_dim, w_hpf, dtype=dtype) for _ in range(2)]
+        q = quant_decode
+        dec = [AdainResBlk(dims[-1], dims[-1], style_dim, w_hpf, dtype=dtype, quant=q) for _ in range(2)]
         dec += [
-            AdainResBlk(dims[i + 1], dims[i], style_dim, w_hpf, upsample=True, dtype=dtype)
+            AdainResBlk(dims[i + 1], dims[i], style_dim, w_hpf, upsample=True, dtype=dtype, quant=q)
             for i in reversed(range(rn))
         ]
         self._modules["decode"] = nn.ModuleList(dec)
@@ -489,12 +528,11 @@ def build_gan_models(
     quant_decode: bool = False,
 ) -> dict[str, nn.Module]:
     """The four GAN nets (reference build_model, model.py:280-310); the
-    discriminator runs in training only.  The int8 decode mode is not
-    ported yet."""
-    if quant_decode:
-        raise NotImplementedError("quant_decode (int8 decoder) is not ported to the torch package yet")
+    discriminator runs in training only.  ``quant_decode`` switches the
+    generator's decoder to the opt-in int8 serving mode (ops/quant.py);
+    the state_dicts are unchanged."""
     return dict(
-        generator=Generator(img_size, style_dim, max_conv_dim, w_hpf, dtype=dtype),
+        generator=Generator(img_size, style_dim, max_conv_dim, w_hpf, dtype=dtype, quant_decode=quant_decode),
         mapping_network=MappingNetwork(latent_dim, style_dim, num_domains, dtype=dtype),
         style_encoder=StyleEncoder(img_size, style_dim, num_domains, max_conv_dim, dtype=dtype),
         discriminator=Discriminator(img_size, num_domains, max_conv_dim, dtype=dtype),

@@ -16,6 +16,10 @@ Port of ``ppvision_tpu/train/gan.py`` (reference
 6. the EMA of G, the mapping network and the style encoder, in the JAX
    form ``p + beta * (e - p)``.
 
+With ``TrainConfig.remat`` G and D run under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps them
+in ``jax.checkpoint``.
+
 Each sub-step takes its gradients with ``torch.autograd.grad`` over the
 nets it updates, and only those nets' parameters take gradients while it
 runs, so no step leaves ``.grad`` on another net and no kernel computes
@@ -33,10 +37,12 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import FaceDeIdConfig
 from ..models.fan import FAN, get_heatmap
@@ -107,7 +113,6 @@ def init_gan(seed: int, cfg: FaceDeIdConfig, device="cuda") -> GANTrainState:
     nets = build_gan_models(
         img_size=m.img_size, style_dim=m.style_dim, latent_dim=m.latent_dim,
         num_domains=m.num_domains, w_hpf=m.w_hpf, max_conv_dim=m.max_conv_dim, dtype=dtype,
-        quant_decode=m.quant_decode,
     )
     pdtype = torch.promote_types(dtype, torch.float32)
     for i, name in enumerate(GAN_NETS):
@@ -184,8 +189,6 @@ def make_train_step(
     ``grad_hook(sub_step, grads)``, where given, sees each sub-step's
     gradients ({net: [tensor, ...]}) before its update, and may return
     others in the same form to be applied in their place."""
-    if cfg.train.remat:
-        raise NotImplementedError("train.remat (activation recomputation) is not ported to the torch package yet")
     lc = cfg.loss
     fan_size = cfg.model.fan_input_size
 
@@ -197,6 +200,13 @@ def make_train_step(
         nets = state.nets
         gen, mapn, senc, disc = (nets[k] for k in GAN_NETS)
         dev = next(gen.parameters()).device
+        if cfg.train.remat:
+            # Recompute G's and D's activations in the backward instead of
+            # keeping them (jax.checkpoint around g_apply and d_apply in the
+            # JAX package): the same values, about one more forward, a lower
+            # peak.  R1's gradient of a gradient goes through it.
+            gen = functools.partial(checkpoint, nets["generator"], use_reentrant=False)
+            disc = functools.partial(checkpoint, nets["discriminator"], use_reentrant=False)
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         x_src, x_ref, x_ref2 = b["x_src"], _nchw(b["x_ref"]), _nchw(b["x_ref2"])
         y_src, y_trg = b["y_src"].long(), b["y_ref"].long()

@@ -517,3 +517,66 @@ def test_train_step_runs_every_kernel_and_matches_cpu(dev):
     for key in gc:
         cos = float(gg[key] @ gc[key] / (gg[key].norm() * gc[key].norm() + 1e-30))
         assert cos >= 0.98, (key, cos)
+
+
+# (B, H, C, O, up) of the int8 decode's products: de-id at 128^2 (B = 8),
+# the 256^2 generator at B = 4, and odd maps (up: a K4 phase with odd H).
+INT8_SHAPES = [
+    (8, 8, 512, 512, False), (8, 8, 512, 512, True), (8, 16, 512, 512, False), (8, 16, 512, 512, True),
+    (8, 32, 512, 512, False), (8, 32, 512, 256, True), (8, 64, 256, 256, False), (8, 64, 256, 128, True),
+    (8, 128, 128, 128, False), (4, 128, 128, 64, True), (4, 256, 64, 64, False), (2, 7, 16, 24, True),
+    (3, 5, 8, 8, False),
+]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_route_matches_plain_bit_for_bit(dev, shape):
+    """The ``torch._int_mm`` route (taps; the up-conv's four phases)
+    against the exact f64 conv, in int32, bit for bit; the bf16 output of
+    the whole int8 conv equals the CPU path's on the same inputs."""
+    from ppvision_tpu_torch.ops import quant
+
+    b, h, c, o, up = shape
+    rng = np.random.default_rng(sum(shape[:4]))
+    xq = torch.from_numpy(rng.integers(-127, 128, (b, h, h + (h % 2), c)).astype(np.int8)).to(dev)
+    kq = torch.from_numpy(rng.integers(-127, 128, (4 if up else 3,) * 2 + (c, o)).astype(np.int8)).to(dev)
+    acc, ref = (quant.int8_up2x_acc, quant.int8_up2x_acc_ref) if up else (quant.int8_conv_acc, quant.int8_conv_acc_ref)
+    before = acc.launches
+    got = acc(xq, kq)
+    assert acc.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got, ref(xq, kq))
+    x = _randn(rng, (b, h, h, c)).to(torch.bfloat16)
+    k = _randn(rng, (3, 3, c, o), 1 / math.sqrt(9 * c))
+    fn = quant.int8_conv3x3_nearest_up2x if up else quant.int8_conv
+    assert torch.equal(fn(x.to(dev), k.to(dev)).cpu(), fn(x, k))
+
+
+def test_int8_route_refuses_what_int_mm_does_not_take(dev):
+    from ppvision_tpu_torch.ops import quant
+
+    for shape in ((1, 4, 4, 8), (2, 4, 4, 12)):  # M = 16; C % 8
+        xq = torch.zeros(shape, dtype=torch.int8, device=dev)
+        with pytest.raises(ValueError, match="_int_mm"):
+            quant.int8_conv_acc(xq, torch.zeros((3, 3, shape[-1], 8), dtype=torch.int8, device=dev))
+
+
+def test_bf16_ref_ds_gap_is_rounding_not_a_kernel(dev):
+    """ROADMAP.md section 3's G/ref_ds item, settled as rounding: at the
+    64^2 train step (B = 2) the bf16 run with the four kernels puts G/ref's
+    fakes no farther from the f32 run than 1.5x the run with their plain
+    versions does, from the same weights (``chip_smoke.ref_ds_study`` at
+    two of its seeds)."""
+    import chip_smoke
+    from ppvision_tpu_torch.ops import KERNELS
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(chip_smoke, "STUDY_SEEDS", (0, 1))
+    mp.setattr(chip_smoke, "BF16_RUNS", ("plain", "kernels"))
+    mp.setattr(chip_smoke, "STUDY_RUNS", ("plain", "f32", "kernels"))
+    try:
+        rows = chip_smoke.ref_ds_study(torch, KERNELS)
+    finally:
+        mp.undo()
+    for seed in (0, 1):
+        for key in ("x_fake_vs_f32", "x_fake2_vs_f32"):
+            assert rows[seed, "kernels"][key] <= 1.5 * rows[seed, "plain"][key], (seed, key)

@@ -113,5 +113,9 @@ def test_reference_key_names():
         assert k in g, k
     assert "shared.6.weight" in m["style_encoder"].state_dict()
     assert "unshared.1.6.bias" in m["mapping_network"].state_dict()
-    with pytest.raises(NotImplementedError):
-        build_gan_models(quant_decode=True)
+    # The int8 decode is a compute variant over the same state_dict
+    # (tests/test_quant.py::test_quant_decode_param_tree_identical).
+    q = build_gan_models(img_size=64, style_dim=16, latent_dim=8, max_conv_dim=64, quant_decode=True)
+    assert {k: v.shape for k, v in q["generator"].state_dict().items()} == {
+        k: v.shape for k, v in m["generator"].state_dict().items()
+    }

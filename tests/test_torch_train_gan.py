@@ -152,17 +152,18 @@ def jax_run():
         )
 
 
-def _port_cfg(compute_dtype: str, **loss):
-    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, LossConfig, ModelConfig
+def _port_cfg(compute_dtype: str, train=None, **loss):
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, LossConfig, ModelConfig, TrainConfig
 
     return FaceDeIdConfig(
         model=ModelConfig(**TINY, compute_dtype=compute_dtype),
         camera=CameraConfig(n=IMG, zernike_terms=TERMS),
         loss=LossConfig(**loss),
+        train=train or TrainConfig(),
     )
 
 
-def _port_trainer(jr, compute_dtype: str, **loss):
+def _port_trainer(jr, compute_dtype: str, train=None, grad_hook=None, **loss):
     """The port's state, frozen nets and train step on the JAX run's
     parameters, on the CPU."""
     from ppvision_tpu_torch.models.fan import FAN
@@ -170,7 +171,7 @@ def _port_trainer(jr, compute_dtype: str, **loss):
     from ppvision_tpu_torch.train.aux_losses import build_flow_fn, build_lpips_fn
     from ppvision_tpu_torch.train.gan import FrozenNets, init_gan, make_train_step
 
-    cfg = _port_cfg(compute_dtype, **loss)
+    cfg = _port_cfg(compute_dtype, train, **loss)
     dtype = getattr(torch, compute_dtype)
     wdtype = torch.promote_types(dtype, torch.float32)
     state = init_gan(0, cfg, device="cpu")
@@ -187,7 +188,7 @@ def _port_trainer(jr, compute_dtype: str, **loss):
     lpips.to(wdtype).load_state_dict(jax_params.lpips_state_dict(jr["lpips"]))
     flow_fn, raft = build_flow_fn(device="cpu", **RAFT_CFG)
     raft.to(wdtype).load_state_dict(jax_params.raft_state_dict(jr["raft"]))
-    return state, frozen, make_train_step(cfg, lpips_fn, flow_fn)
+    return state, frozen, make_train_step(cfg, lpips_fn, flow_fn, grad_hook=grad_hook)
 
 
 def _state_dicts(state):
@@ -280,12 +281,66 @@ def test_resume_is_bit_exact(jax_run, tmp_path):
                 assert torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k])), (net, i, k)
 
 
-def test_remat_is_not_ported():
+def test_remat_step_matches_plain(jax_run):
+    """``TrainConfig.remat`` recomputes G's and D's activations in the
+    backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping
+    them: one f32 step, R1's gradient of a gradient included, gives the
+    plain step's losses, every sub-step's gradients and the updated
+    parameters bit for bit (the recomputed forward equals the first)."""
     from ppvision_tpu_torch.config import TrainConfig
-    from ppvision_tpu_torch.train.gan import make_train_step
 
-    with pytest.raises(NotImplementedError):
-        make_train_step(dataclasses.replace(_port_cfg("float32"), train=TrainConfig(remat=True)))
+    batch = {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in jax_run["batches"][0].items()}
+    runs = {}
+    for remat in (False, True):
+        grads = []
+
+        def hook(sub, by_net):
+            grads.append((sub, {k: [t.clone() for t in v] for k, v in by_net.items()}))
+
+        state, frozen, step = _port_trainer(jax_run, "float32", TrainConfig(remat=remat), hook)
+        runs[remat] = step(state, frozen, batch), grads, _state_dicts(state)
+    (m0, g0, sd0), (m1, g1, sd1) = runs[False], runs[True]
+    assert set(m0) == set(m1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert [s for s, _ in g0] == [s for s, _ in g1] == ["D/latent", "D/ref", "G/latent", "G/ref"]
+    for (_, a), (_, b) in zip(g0, g1):
+        for net in a:
+            assert all(torch.equal(x, y) for x, y in zip(a[net], b[net])), net
+    for a, b in zip(sd0, sd1):
+        for net in a:
+            assert all(torch.equal(a[net][k], b[net][k]) for k in a[net]), net
+
+
+def test_metric_writer_and_profile_trace_write_their_files(tmp_path, capsys):
+    """``utils/logging.py``: ``MetricWriter`` prints and appends
+    ``metrics.jsonl`` every ``log_interval`` steps (without wandb and
+    tensorboard, which are not installed, after one notice each), and
+    ``profile_trace`` writes a Chrome trace into its directory."""
+    import json
+
+    from ppvision_tpu_torch.utils.logging import AverageMeter, MetricWriter, StepTimer, profile_trace
+
+    writer = MetricWriter(str(tmp_path / "log"), use_wandb=True, log_interval=2, use_tensorboard=True)
+    for step in (1, 2, 3, 4):
+        writer.write(step, {"D/latent_real": torch.tensor(0.5 * step), "G/lambda_ds": 1.0})
+    writer.close()
+    lines = [json.loads(s) for s in (tmp_path / "log" / "metrics.jsonl").read_text().splitlines()]
+    assert lines == [{"step": 2, "D/latent_real": 1.0, "G/lambda_ds": 1.0},
+                     {"step": 4, "D/latent_real": 2.0, "G/lambda_ds": 1.0}]
+    out = capsys.readouterr().out
+    assert "step 4: D/latent_real: [2.0000]" in out
+    meter, timer = AverageMeter(), StepTimer()
+    meter.update(2.0, n=3)
+    meter.update(4.0)
+    timer.data_tick()
+    timer.batch_tick()
+    assert meter.avg == 2.5 and meter.val == 4.0 and timer.batch.count == 1
+    with profile_trace(str(tmp_path / "trace")):
+        torch.ones(8).sum()
+    with profile_trace(str(tmp_path / "off"), enabled=False):
+        pass
+    traces = list((tmp_path / "trace").glob("*.json"))
+    assert len(traces) == 1 and "traceEvents" in json.loads(traces[0].read_text())
+    assert not (tmp_path / "off").exists()
 
 
 def test_pretrained_files_load_and_absent_ones_warn(tmp_path, capsys):
