@@ -70,26 +70,46 @@ What it does, in order; any failure raises and exits non-zero:
    under ``torch.profiler`` for the device's busy share and a breakdown;
 12. one 64x64 train step on the card against the port's CPU path, in f32
    and in bf16;
-13. ROADMAP.md section 3's study of the bf16 ``G/ref_ds`` gap: at that
-   64x64 step and five seeds, G/ref's fakes with the four kernels, their
-   plain versions, and the kernels with one plain version at a time,
-   against f32 (``ref_ds_study``);
-14. the int8 decode's products (``ops/quant.py``, ``torch._int_mm``) at
+13. the int8 decode's products (``ops/quant.py``, ``torch._int_mm``) at
    every quantized decode shape: int32 accumulators bit for bit against
    the f64 plain version, outputs bit for bit against the CPU path, and
    their times beside the exact path's convs and the int8 bound;
-15. the int8 served run (``quant_decode=True``, 128x128 full width,
+14. the int8 served run (``quant_decode=True``, 128x128 full width,
    batch 8, R = 10): launch counts (conv3x3 13 a step), the int8 output
-   within (1e-5, 0.25) of the exact one, and the img/s of both, labelled;
-16. ``remat``: one ``FaceDeIdConfig()`` step with and without it, losses
+   within (1e-5, 0.25) of the exact one, its quality gates against the
+   exact one (SSIM > 0.9, face-ID cosine >= 0.98; ``int8_gates``), and
+   the img/s of both, labelled;
+15. ``remat``: one ``FaceDeIdConfig()`` step with and without it, losses
    bit for bit, gradients at cosine >= 0.9999, the peak device memory
    and seconds of each;
-17. the CLI (``cli/main.py``) at ``FaceDeIdConfig()`` full width: 2
+16. the CLI (``cli/main.py``) at ``FaceDeIdConfig()`` full width: 2
    training iterations from folders of seeded arrays, a resumed third,
-   and ``--mode sample`` from the checkpoint.
+   and ``--mode sample`` from the checkpoint;
+17. the evaluation (``metrics/eval_gan.py``) at ``FaceDeIdConfig()``
+   full width with full-size random metric nets (InceptionV3, IResNet-50,
+   AlexNet), 2 domains x 16 images, batch 8, 10 outputs a source: latent
+   mode, reference mode and latent mode with the aligned face-ID embed,
+   launch counts set to 0 just before each and read just after, no
+   conv3x3, instats or denseblock shape that step 3 did not check; the
+   multi-output fakes against a per-style ``deid_from_latent`` loop, bit
+   for bit (``eval_phase``).  Its FIDs (a host ``sqrtm`` each) run in
+   worker processes during step 18; then every value is checked and each
+   run's seconds print split into generation, LPIPS, face-ID, Inception
+   and the FIDs;
+18. ROADMAP.md section 3's study of the bf16 ``G/ref_ds`` gap: at step
+   12's 64x64 step and five seeds, G/ref's fakes with the four kernels,
+   their plain versions, and the kernels with one plain version at a
+   time, against f32 (``ref_ds_study``);
+19. the evaluation at a 64^2 f32 configuration on the card against the
+   port's CPU path, and the three metric nets at full size card against
+   CPU in f32;
+20. the face aligner (``models/align.py``, ``--mode align``'s) on 8
+   seeded 256^2 faces, card against CPU, with its ms an image split into
+   the FAN, the mirror-pad and blur, and the LANCZOS4 warp.
 
-The last four lines of standard output are the int8 products' JSON
-record, the card's name and power limit, the kernels' JSON record and
+Each phase's seconds print as it ends, and all of them on one JSON line
+with the build's and the total.  The last four lines of standard output
+are the int8 products' JSON record, the card's name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -119,6 +139,9 @@ RAFT_RADIUS = 4
 OUT_DIR = "chip_smoke_out"  # videos, where the machine has ffmpeg (listed in .gitignore)
 TRAIN_B = 4  # TrainConfig().batch_size: the reference recipe's batch
 TRAIN_STEPS = 3
+EVAL_B = 8  # TrainConfig().val_batch_size
+EVAL_R = 10  # TrainConfig().num_outs_per_domain
+EVAL_RB = EVAL_R * EVAL_B  # the eval's style-encoder and aligned-FAN batch: every output of a source batch
 
 
 def card_line() -> str:
@@ -166,13 +189,14 @@ def rfft_conv(img, ore, oim):
 
 def check_fftconv(torch, dev) -> list[dict]:
     """Kernel 1 at the paths' shapes: the de-id camera (B=8, 128^2), the
-    video camera (B=16, 256^2) and the train camera (B=4, 256^2); one
-    record each."""
+    video camera (B=16, 256^2), the train camera (B=4, 256^2) and the
+    eval camera (B=8, 256^2); one record each."""
     from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
     from ppvision_tpu_torch.optics.camera import Camera, CameraSpec, compute_psf, make_camera_constants
 
     records = []
-    for n, b, path in ((IMG, SERVE_BATCH, "deid"), (VIDEO_IMG, VIDEO_T, "video"), (VIDEO_IMG, TRAIN_B, "train")):
+    for n, b, path in ((IMG, SERVE_BATCH, "deid"), (VIDEO_IMG, VIDEO_T, "video"), (VIDEO_IMG, TRAIN_B, "train"),
+                       (VIDEO_IMG, EVAL_B, "eval")):
         spec = CameraSpec(n=n)
         psf = compute_psf(Camera(spec).to(dev), make_camera_constants(spec, dev)).psf
         kern = torch.roll(psf, (-(n // 2), -(n // 2)), (0, 1))
@@ -215,14 +239,18 @@ def denseblock_bound(x, ks) -> tuple[float, str]:
 # the depth-4 hourglass's 13 blocks at 64^2 .. 4^2.  The video phase runs
 # FAN on its 16 frames and on the interpolation video's 8 sources (the
 # served shapes), and the train phase three FANs a step at its batch of 4;
-# none of that is in the served step.  The served run, the video and the
-# train phase check that they take no other shape.
+# the eval's aligned face-ID embed runs the bundle's FAN on a source
+# batch's 80 outputs at once; none of that is in the served step.  The
+# served run and the video, train and eval phases check that they take
+# no other shape.
 DENSEBLOCK_SHAPES = {
     (8, 64, 128): 1, (8, 64, 256): 2, (8, 32, 256): 3, (8, 16, 256): 3, (8, 8, 256): 3, (8, 4, 256): 3,
     (VIDEO_T, 64, 128): 0, (VIDEO_T, 64, 256): 0, (VIDEO_T, 32, 256): 0, (VIDEO_T, 16, 256): 0,
     (VIDEO_T, 8, 256): 0, (VIDEO_T, 4, 256): 0,
     (TRAIN_B, 64, 128): 0, (TRAIN_B, 64, 256): 0, (TRAIN_B, 32, 256): 0, (TRAIN_B, 16, 256): 0,
     (TRAIN_B, 8, 256): 0, (TRAIN_B, 4, 256): 0,
+    (EVAL_RB, 64, 128): 0, (EVAL_RB, 64, 256): 0, (EVAL_RB, 32, 256): 0, (EVAL_RB, 16, 256): 0,
+    (EVAL_RB, 8, 256): 0, (EVAL_RB, 4, 256): 0,
 }
 DENSEBLOCK_PER_STEP = sum(DENSEBLOCK_SHAPES.values())  # 15
 
@@ -332,9 +360,10 @@ def instats_bound(x) -> tuple[float, str]:
 # runs in the video phase: de-id at the video's batch of 16, and the
 # style-interpolation video, which encodes its 8 sources and decodes
 # them under 31 styles at once (B = 248); the train phase runs it at its
-# batch of 4, forward and backward; none of that is in the served step.
-# The served run, the video and the train phase check that they take no
-# other shape.
+# batch of 4, forward and backward; the eval runs it at its source batch
+# of 8 (the shapes of the (8, 256, 64) row and the served rows); none of
+# that is in the served step.  The served run and the video, train and
+# eval phases check that they take no other shape.
 INTERP_B = 8 * 31
 INSTATS_SHAPES = {
     (8, 128, 128): 22, (8, 64, 128): 1, (8, 64, 256): 22, (8, 32, 256): 1, (8, 32, 512): 22,
@@ -417,7 +446,9 @@ def conv3x3_bound(x, w) -> tuple[float, str]:
 # 256^2 generator's new shapes run at the video's batch of 16 and are
 # not in the served step.  The train phase runs the 256^2 generator, the
 # style encoder and the discriminator at its batch of 4, and checks that
-# it gives no other shape.
+# it gives no other shape.  The eval runs the 256^2 generator at its
+# source batch of 8 and, in reference mode, the style encoder on a
+# source batch's 80 reference faces at once; it checks likewise.
 CONV3X3_SHAPES = {
     (8, 64, 128, 256): 2, (8, 32, 256, 512): 2, (8, 16, 512, 512): 12, (8, 8, 512, 512): 46,
     (8, 128, 128, 128): 10, (8, 64, 256, 256): 10, (8, 32, 512, 512): 10, (10, 4, 512, 512): 1,
@@ -426,6 +457,9 @@ CONV3X3_SHAPES = {
     (TRAIN_B, 64, 128, 256): 0, (TRAIN_B, 64, 256, 256): 0, (TRAIN_B, 32, 256, 512): 0,
     (TRAIN_B, 32, 512, 512): 0, (TRAIN_B, 16, 512, 512): 0, (TRAIN_B, 8, 512, 512): 0,
     (TRAIN_B, 4, 512, 512): 0,
+    (EVAL_B, 256, 64, 64): 0, (EVAL_B, 128, 64, 128): 0,
+    (EVAL_RB, 128, 64, 128): 0, (EVAL_RB, 64, 128, 256): 0, (EVAL_RB, 32, 256, 512): 0,
+    (EVAL_RB, 16, 512, 512): 0, (EVAL_RB, 8, 512, 512): 0, (EVAL_RB, 4, 512, 512): 0,
 }
 CONV3X3_PER_STEP = sum(CONV3X3_SHAPES.values())  # 93
 # With quant_decode the decoder's 8 convs a style run in int8: the
@@ -1424,6 +1458,7 @@ def serve_int8(torch, kernels, card: str) -> dict:
             print(f"int8 against exact output, B={b} R={R_STYLES}: rel {rel:.4e} (bound 1e-5 < rel < 0.25)")
             if not 1e-5 < rel < 0.25 or not bool(torch.isfinite(yq).all()):
                 raise AssertionError(f"int8 decode output departs from the exact output: rel {rel}")
+            int8_gates(torch, ye, yq)
         for tag, bd in (("exact", bundle), ("int8", qbundle), ("int8 again", qbundle), ("exact again", bundle)):
             ms = cuda_ms(lambda: deid_multi_style(bd, xs, xr, yr), iters=3, warmup=1)
             rates.setdefault((tag.split()[0], b), []).append(b * R_STYLES / (ms / 1e3))
@@ -1511,14 +1546,14 @@ CLI_FACES = 6  # images a class folder
 CLI_FACE_HW = (320, 288)  # face-sized, not square: the native crop/resize works on every batch
 
 
-def write_face_folders(root: str, seed: int, hw=CLI_FACE_HW) -> None:
-    """Seeded uint8 (H, W, 3) arrays, saved with ``np.save`` under image
-    names in two class folders (the card's machine has no PIL to write or
-    read image files)."""
+def write_face_folders(root: str, seed: int, hw=CLI_FACE_HW, n: int = CLI_FACES) -> None:
+    """Seeded uint8 (H, W, 3) arrays, ``n`` a class, saved with ``np.save``
+    under image names in two class folders (the card's machine has no PIL
+    to write or read image files)."""
     rng = np.random.default_rng(seed)
     for cls in ("female", "male"):
         os.makedirs(os.path.join(root, cls), exist_ok=True)
-        for i in range(CLI_FACES):
+        for i in range(n):
             with open(os.path.join(root, cls, f"{i:03d}.png"), "wb") as f:
                 np.save(f, rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
 
@@ -1629,6 +1664,444 @@ def cli_phase(torch, kernels, card: str) -> dict:
     return dict(launches={k: sum(i["launches"][k] for i in iters) for k in kernels}, iters=iters)
 
 
+EVAL_DIR = os.path.join(OUT_DIR, "eval")
+EVAL_IMAGES = 16  # a domain folder
+EVAL_PARTS = ("generation", "lpips", "face_id", "inception", "fid_host")
+EVAL_FID_WORKERS = 4  # processes for the FIDs' host sqrtm, beside the card's work
+FID_WORKER_THREADS = 1  # BLAS threads a worker: 4 of the card's host's 8 cores, the rest left to the main process
+BLAS_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def resize_np(img: np.ndarray, size) -> np.ndarray:
+    """Half-pixel bilinear resize of a uint8 (H, W, 3) array, rounded to
+    uint8: the stand-in for ``data/face.py::_resize``'s PIL resize (the
+    card's machine has no PIL)."""
+    from ppvision_tpu_torch.ops.image import _resize_matrix_np
+
+    if img.shape[:2] == tuple(size):
+        return img
+    mh = _resize_matrix_np(img.shape[0], size[0], False, True)
+    mw = _resize_matrix_np(img.shape[1], size[1], False, True)
+    out = np.tensordot(np.tensordot(mh, img.astype(np.float64), (1, 0)), mw, (1, 1)).transpose(0, 2, 1)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+class array_io:
+    """``data/face.py``'s PIL-bound image I/O swapped for the phase: its
+    decoder (``_load_rgb``) reads the arrays ``write_face_folders`` saved
+    and its resize (``_resize``) is :func:`resize_np`."""
+
+    def __enter__(self):
+        from ppvision_tpu_torch.data import face
+
+        self.saved = face._load_rgb, face._resize
+        face._load_rgb, face._resize = np.load, resize_np
+
+    def __exit__(self, *exc):
+        from ppvision_tpu_torch.data import face
+
+        face._load_rgb, face._resize = self.saved
+
+
+class eval_parts:
+    """Splits ``calculate_metrics``' seconds on the main process into
+    ``EVAL_PARTS`` by timing, between two synchronizes, the names
+    ``metrics/eval_gan.py`` calls: ``_generate``, the function
+    ``make_pairwise_lpips_fn`` returns, ``_id_cosines`` and
+    ``collect_activations`` (the fakes' 299^2 resize included).  The
+    FIDs run in worker processes (:func:`timed_fid`); ``fid_host`` is
+    filled in from there."""
+
+    NAMES = {"_generate": "generation", "_id_cosines": "face_id", "collect_activations": "inception"}
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.secs = dict.fromkeys(EVAL_PARTS, 0.0)
+
+    def _timed(self, fn, key):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.secs[key] += time.perf_counter() - t0
+            return out
+
+        return run
+
+    def __enter__(self):
+        from ppvision_tpu_torch.metrics import eval_gan
+
+        self.saved = {n: getattr(eval_gan, n) for n in (*self.NAMES, "make_pairwise_lpips_fn")}
+        for n, key in self.NAMES.items():
+            setattr(eval_gan, n, self._timed(self.saved[n], key))
+        make = self.saved["make_pairwise_lpips_fn"]
+        eval_gan.make_pairwise_lpips_fn = lambda *a, **kw: self._timed(make(*a, **kw), "lpips")
+        return self.secs
+
+    def __exit__(self, *exc):
+        from ppvision_tpu_torch.metrics import eval_gan
+
+        for n, fn in self.saved.items():
+            setattr(eval_gan, n, fn)
+
+
+def timed_fid(real: np.ndarray, fake: np.ndarray) -> tuple[float, float]:
+    """``metrics/fid.py::fid_from_activations`` and its host seconds: the
+    eval phase's worker processes run it."""
+    from ppvision_tpu_torch.metrics.fid import fid_from_activations
+
+    t0 = time.perf_counter()
+    return fid_from_activations(real, fake), time.perf_counter() - t0
+
+
+def fid_workers():
+    """``EVAL_FID_WORKERS`` spawned worker processes, started now with
+    ``FID_WORKER_THREADS`` BLAS threads each (the variables are read when
+    a process loads numpy, so they are set only while the workers
+    start)."""
+    import concurrent.futures
+    import multiprocessing
+
+    saved = {k: os.environ.get(k) for k in BLAS_THREAD_VARS}
+    os.environ.update(dict.fromkeys(BLAS_THREAD_VARS, str(FID_WORKER_THREADS)))
+    try:
+        pool = concurrent.futures.ProcessPoolExecutor(EVAL_FID_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        for started in [pool.submit(int, 0) for _ in range(EVAL_FID_WORKERS)]:
+            started.result()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return pool
+
+
+def check_eval_results(res: dict, mode: str, tasks=("male2female", "female2male")) -> None:
+    """The keys of a two-domain run, every value finite, each cosine in
+    [-1, 1] and each LPIPS >= 0."""
+    want = {f"{m}_{mode}/{t}" for m in ("LPIPS", "FaceIDcos", "FID") for t in tasks}
+    bad = [k for k, v in res.items() if not math.isfinite(v)
+           or (k.startswith("FaceIDcos") and not -1.0 <= v <= 1.0) or (k.startswith("LPIPS") and v < 0)]
+    if set(res) != want or bad:
+        raise AssertionError(f"eval {mode}: keys {sorted(res)} (want {sorted(want)}), bad values {bad}")
+
+
+def eval_phase(torch, kernels, card: str):
+    """``metrics/eval_gan.py::calculate_metrics`` at ``FaceDeIdConfig()``
+    (256^2, full width, bf16, FAN at 256; seeded random weights) with the
+    full-size random metric nets (``allow_random_metrics``: InceptionV3 at
+    299^2, IResNet-50 at 112^2, LPIPS's AlexNet), ``val_batch_size`` 8 and
+    ``num_outs_per_domain`` 10, on a val folder of 2 domains x 16 seeded
+    256^2 uint8 arrays.  Only ``data/face.py``'s PIL-bound host I/O is
+    swapped (:class:`array_io`: ``_load_rgb`` reads the arrays, ``_resize``
+    is :func:`resize_np` for the real images' 299^2 path and the
+    reference mode); the rest is the package's code.  Runs latent mode,
+    reference mode, then latent mode with the aligned face-ID embed (the
+    bundle's FAN, as ``tests/test_eval_gan.py`` runs it), each with the
+    launch counts set to 0 just before and read just after: the four de-id
+    kernels must run, and no conv3x3, instats or denseblock shape that
+    their checks did not check.  Each FID (a 2048^2 ``sqrtm`` on the
+    host) goes to one of :func:`fid_workers` (:func:`timed_fid`, the
+    package's ``fid_from_activations``) while the card goes on.  The
+    aligned run draws the same outputs as the first, so its FIDs are the
+    first run's, once its activations are checked equal.  Then one source
+    batch's multi-output fakes against a per-style loop of
+    ``deid_from_latent`` on the same z, bit for bit.  Returns ``finish``,
+    which waits for the FIDs, checks every value, prints every key and
+    each run's seconds split by ``EVAL_PARTS``, and returns the runs."""
+    import concurrent.futures
+    import shutil
+
+    from ppvision_tpu_torch.config import FaceDeIdConfig
+    from ppvision_tpu_torch.data import face
+    from ppvision_tpu_torch.deid import build_deid, deid_from_latent
+    from ppvision_tpu_torch.metrics import eval_gan
+    from ppvision_tpu_torch.ops import DEID_KERNELS
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    cfg = FaceDeIdConfig()
+    size = cfg.model.img_size
+    root = os.path.join(EVAL_DIR, "val")
+    write_face_folders(root, 61, (size, size), n=EVAL_IMAGES)
+    bundle = build_deid(0, cfg, "cuda")
+    fid = eval_gan.fid_from_activations
+    pool = fid_workers()
+    latent_fids, submitted = [], {}
+
+    def submit(tag):
+        def run(real, fake):
+            submitted.setdefault(tag, []).append(pool.submit(timed_fid, real, fake))
+            return submitted[tag][-1]
+
+        return run
+
+    def record(real, fake):
+        latent_fids.append((real, fake, submit("latent")(real, fake)))
+        return latent_fids[-1][2]
+
+    def reuse(real, fake):
+        r, f, v = latent_fids.pop(0)
+        err = max(float(np.abs(real - r).max()), float(np.abs(fake - f).max()))
+        print(f"eval latent aligned: activations against the latent run's, max |diff| {err:.3e}")
+        if err > 1e-3 * max(1.0, float(np.abs(f).max())):
+            raise AssertionError(f"eval: the aligned run's outputs differ from the latent run's ({err})")
+        return v
+
+    out = {}
+    seen, undo = record_shapes()
+    try:
+        for tag, mode, fan, fid_fn in (("latent", "latent", None, record),
+                                       ("reference", "reference", None, submit("reference")),
+                                       ("latent aligned", "latent", bundle.fan, reuse)):
+            for fn in kernels.values():
+                fn.launches = 0
+            eval_gan.fid_from_activations = fid_fn
+            try:
+                with array_io(), eval_parts(torch) as secs:
+                    t0 = time.perf_counter()
+                    res = eval_gan.calculate_metrics(bundle, root, mode=mode, num_outs=EVAL_R, batch_size=EVAL_B,
+                                                     allow_random_metrics=True, align_fan=fan)
+                    total = time.perf_counter() - t0
+            finally:
+                eval_gan.fid_from_activations = fid
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            missing = [k for k in DEID_KERNELS if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"eval {tag}: kernels not launched {missing}")
+            out[tag] = dict(mode=mode, results=res, seconds=total, parts=dict(secs), launches=launches)
+        undo()
+        print(f"eval shapes {({k: dict(v) for k, v in seen.items()})}")
+        unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock"))
+        if unchecked:
+            raise AssertionError(f"the eval phase gave kernel shapes that were not checked: {unchecked}")
+        # One source batch: the eval's multi-output path against a loop of
+        # deid_from_latent over the same styles' z.
+        with array_io():
+            x_src = torch.from_numpy(next(face.eval_batches(os.path.join(root, "male"), size, EVAL_B))).cuda()
+        y = torch.zeros(EVAL_B, dtype=torch.long).cuda()
+        multi = eval_gan._generate(bundle, "latent", x_src, y, np.random.default_rng(5), None, EVAL_R)
+        zs = np.random.default_rng(5).standard_normal((EVAL_R, EVAL_B, cfg.model.latent_dim)).astype(np.float32)
+        loop = torch.stack([deid_from_latent(bundle, x_src, torch.from_numpy(z).cuda(), y) for z in zs])
+        same = bool(torch.equal(multi, loop))
+        print(f"eval multi-output fakes against the per-style deid_from_latent loop: bit for bit {same}, max |diff| "
+              f"{float((multi - loop).abs().max()):.3e} (mapping network at {EVAL_RB} rows against {EVAL_B})")
+        if not same:
+            raise AssertionError("eval: the multi-output fakes differ from the per-style loop")
+    except BaseException:
+        undo()
+        pool.shutdown(cancel_futures=True)
+        raise
+    main_s = time.perf_counter() - t_phase
+
+    def finish() -> dict:
+        t_wait = time.perf_counter()
+        pool.shutdown(wait=True)
+        wait_s = time.perf_counter() - t_wait
+        for tag, o in out.items():
+            res = o["results"]
+            res.update({k: v.result()[0] for k, v in res.items() if isinstance(v, concurrent.futures.Future)})
+            fid_s = [f.result()[1] for f in submitted.get(tag, [])]
+            o["parts"]["fid_host"] = sum(fid_s)
+            check_eval_results(res, o["mode"])
+            fids = " + ".join(f"{s:.2f} s" for s in fid_s) or "the latent run's"
+            print(f"eval {tag}: {o['seconds']:.2f} s on the main process, "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in o["parts"].items())
+                  + f" (FIDs {fids} in worker processes, beside the card's work); launches {o['launches']}; {card}")
+            for k, v in res.items():
+                print(f"  {k}: {v:.6f}")
+        print(f"eval phase: {main_s:.2f} s on the main process; then {wait_s:.2f} s waiting for the FID workers "
+              f"({EVAL_FID_WORKERS} processes) after the phases between; {card}")
+        print(json.dumps({"eval_s": {k: {"total": v["seconds"], **v["parts"]} for k, v in out.items()},
+                          "main_s": main_s, "fid_wait_s": wait_s, "img": size, "B": EVAL_B, "R": EVAL_R,
+                          "images_a_domain": EVAL_IMAGES, "card": card}))
+        return out
+
+    return finish
+
+
+def small_eval_cfg():
+    """The f32 configuration of ``eval_gpu_vs_cpu``: 64^2, max_conv_dim 64,
+    style 16, latent 8, FAN at 64, camera n = 64."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig
+
+    return FaceDeIdConfig(model=ModelConfig(img_size=64, style_dim=16, latent_dim=8, max_conv_dim=64,
+                                            fan_input_size=64, compute_dtype="float32"), camera=CameraConfig(n=64))
+
+
+EVAL_CARD_CPU_TOL = 1e-3  # tests/test_torch_deid.py's f32 bound
+
+
+def eval_gpu_vs_cpu(torch) -> dict:
+    """``calculate_metrics`` at ``small_eval_cfg`` (2 domains x 4 images,
+    batch 4, ``num_outs`` 3, seeded random nets and metric nets) on the card
+    and on the port's CPU path, in both modes: every LPIPS and FaceIDcos
+    value within ``EVAL_CARD_CPU_TOL``.  The full-size InceptionV3 would
+    take the CPU most of a minute a run and a 2048^2 ``sqrtm`` a FID, so
+    here ``collect_activations`` gives each image's channel means (the
+    fakes' 299^2 resize and normalization still run) and
+    ``fid_from_activations`` the squared distance of the means; Inception
+    itself is held card against CPU by ``metric_nets_gpu_vs_cpu``.  TF32 is
+    off (``resolve_device``)."""
+    from ppvision_tpu_torch.deid import build_deid
+    from ppvision_tpu_torch.metrics import eval_gan
+
+    root = os.path.join(EVAL_DIR, "small")
+    write_face_folders(root, 62, (64, 64), n=4)
+    saved = eval_gan.collect_activations, eval_gan.fid_from_activations
+    eval_gan.collect_activations = lambda model, batches: np.concatenate(
+        [torch.as_tensor(b).float().mean(dim=(1, 2)).cpu().numpy() for b in batches])
+    eval_gan.fid_from_activations = lambda real, fake: float(np.sum((real.mean(0) - fake.mean(0)) ** 2))
+    res = {}
+    try:
+        with array_io():
+            for dev in ("cuda", "cpu"):
+                bundle = build_deid(0, small_eval_cfg(), dev)
+                for mode in ("latent", "reference"):
+                    res[dev, mode] = eval_gan.calculate_metrics(bundle, root, mode=mode, num_outs=3, batch_size=4,
+                                                                allow_random_metrics=True)
+    finally:
+        eval_gan.collect_activations, eval_gan.fid_from_activations = saved
+    errs = {}
+    for mode in ("latent", "reference"):
+        want = res["cpu", mode]
+        for k, v in res["cuda", mode].items():
+            errs[k] = abs(v - want[k]) / (1.0 if k.startswith(("LPIPS", "FaceIDcos")) else max(1.0, abs(want[k])))
+    worst = max(v for k, v in errs.items() if not k.startswith("FID"))
+    print(f"eval card against CPU (64^2 f32, 2x4 images, num_outs 3): max |diff| of LPIPS and FaceIDcos "
+          f"{worst:.3e} (tol {EVAL_CARD_CPU_TOL}); of the FID stand-in (relative) "
+          f"{max(v for k, v in errs.items() if k.startswith('FID')):.3e}")
+    if set(res["cuda", "latent"]) != set(res["cpu", "latent"]) or not worst <= EVAL_CARD_CPU_TOL:
+        raise AssertionError(f"eval card against CPU: {errs}")
+    return errs
+
+
+def metric_nets_gpu_vs_cpu(torch) -> dict:
+    """InceptionV3 (4 x 299^2), IResNet-50 (4 x 112^2) and LPIPS's AlexNet
+    features (4 x 256^2) at full size, seeded random weights, on the card
+    and on the CPU in f32: the largest difference relative to the largest
+    output within 1e-3.  TF32 stays off (``resolve_device``), so the card
+    computes true f32."""
+    from ppvision_tpu_torch.metrics.face_id import IResNet
+    from ppvision_tpu_torch.metrics.fid import InceptionV3
+    from ppvision_tpu_torch.metrics.lpips import LPIPS
+    from ppvision_tpu_torch.models.stargan import init_params_
+
+    rng = np.random.default_rng(63)
+    lpips = LPIPS()
+    init_params_(lpips.alexnet, 0, gain=1.0)
+    nets = {"inception": (init_params_(InceptionV3(), 1, gain=1.0), 299),
+            "iresnet50": (init_params_(IResNet(), 2, gain=1.0), 112),
+            "alexnet": (lpips, 256)}
+    errs = {}
+    for name, (net, size) in nets.items():
+        x = torch.from_numpy(rng.standard_normal((4, size, size, 3)).astype(np.float32))
+        fn = (lambda m, v: m.features(v)) if name == "alexnet" else (lambda m, v: [m(v)])
+        want = fn(net.eval(), x)
+        got = fn(net.cuda(), x.cuda())
+        errs[name] = max(float((g.cpu() - w).abs().max()) / (float(w.abs().max()) + 1e-12) for g, w in zip(got, want))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    print(f"metric nets card against CPU, f32, TF32 (cudnn, matmul) {tf32}: relative max |diff| {errs} (tol 1e-3)")
+    if any(not v <= 1e-3 for v in errs.values()):
+        raise AssertionError(f"metric nets card against CPU: {errs}")
+    return errs
+
+
+ALIGN_N = 8
+
+
+def blob_faces(n: int, size: int, seed: int) -> np.ndarray:
+    """(n, size, size, 3) faces in [-1, 1]: a smooth blob off centre over
+    faint noise, so each landmark heatmap's peak is interior."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] * (256 / size)
+    out = []
+    for _ in range(n):
+        cy, cx = rng.uniform(100, 156, 2)
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 40.0**2))
+        out.append(0.6 * blob[..., None] * rng.uniform(0.5, 1, 3) + 0.1 * rng.random((size, size, 3)))
+    return (np.stack(out) * 2 - 1).astype(np.float32)
+
+
+def align_phase(torch, kernels, card: str) -> dict:
+    """``models/align.py::FaceAligner`` as ``--mode align`` builds it (the
+    full FAN at 256^2, f32, seeded random weights; seeded mean landmarks)
+    on ``ALIGN_N`` seeded 256^2 faces, on the card and on the port's CPU
+    path: the landmarks identical and the aligned images within 1e-2 on
+    the 0-255 scale.  The card's ms an image split into the FAN
+    (``get_landmarks``), the mirror-pad and blur (``pad_mirror``) and the
+    LANCZOS4 warp, each between two synchronizes, from a second call; the
+    FAN runs f32, so denseblock (bf16 only) takes its plain path."""
+    from ppvision_tpu_torch.models import align
+    from ppvision_tpu_torch.models.fan import FAN
+    from ppvision_tpu_torch.models.stargan import init_params_
+
+    fan = init_params_(FAN(), 0, gain=1.0).eval().requires_grad_(False)
+    mean_lm = np.tile([[128.0, 128.0]], (98, 1)) + np.random.default_rng(64).normal(0, 30, (98, 2))
+    faces = blob_faces(ALIGN_N, 256, 65)
+    lms, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        aligner = align.FaceAligner(fan.to(dev), mean_lm, 256)
+        x = torch.from_numpy(faces).to(dev)
+        lms[dev] = align.get_landmarks(aligner.fan, x).cpu().numpy()
+        for fn in kernels.values():
+            fn.launches = 0
+        outs[dev] = aligner.align(faces)
+    route = "kernel" if kernels["denseblock"].launches else "plain (the FAN is f32)"
+    ms = dict.fromkeys(("fan", "pad_blur", "warp"), 0.0)
+
+    def timed(key, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        ms[key] += (time.perf_counter() - t0) * 1e3 / ALIGN_N
+        return out
+
+    x = torch.from_numpy(faces).cuda()
+    lm = timed("fan", align.get_landmarks, aligner.fan, x).cpu().numpy()
+    padded = timed("pad_blur", align.pad_mirror, (x * 0.5 + 0.5) * 255.0)
+    mats = np.stack([aligner.matrix(m + np.array([padded.shape[2] // 4, padded.shape[1] // 4])) for m in lm])
+    timed("warp", align.warp_lanczos4, padded, mats, (256, 256))
+    same = int((lms["cuda"] == lms["cpu"]).all(axis=-1).sum())
+    err = float(np.abs(outs["cuda"] - outs["cpu"]).max()) * 127.5
+    print(f"align {ALIGN_N} x 256^2: landmarks equal card/CPU {same}/{ALIGN_N * 98}; aligned images max |diff| "
+          f"{err:.3e} on 0-255 (tol 1e-2); ms an image: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; denseblock route {route}; {card}")
+    if same != ALIGN_N * 98 or not err <= 1e-2 or not np.isfinite(outs["cuda"]).all():
+        raise AssertionError(f"align card against CPU: {same} landmarks equal, images {err}")
+    print(json.dumps({"align_ms_an_image": ms, "n": ALIGN_N, "img": 256, "card": card}))
+    return dict(ms=ms, err=err)
+
+
+def int8_gates(torch, ye, yq) -> dict:
+    """``tests/test_quant.py::test_quant_task_metrics``' gates on the exact
+    and int8 outputs (R, B, H, W, 3) in saved-image space
+    (``clip(y * 0.5 + 0.5, 0, 1)``): SSIM > 0.9, and the face-ID cosine with
+    a random ``IResNet(layers=(1, 1, 1, 1))`` >= 0.98 and above the cosine
+    to uniform noise by 0.3; the cosine with a random IResNet-50 beside."""
+    from ppvision_tpu_torch.metrics.face_id import IResNet, face_id_cosine, make_embed_fn
+    from ppvision_tpu_torch.metrics.psnr_ssim import ssim
+    from ppvision_tpu_torch.models.stargan import init_params_
+
+    dev = ye.device
+    e01, q01 = ((y.reshape(-1, *y.shape[2:]) * 0.5 + 0.5).clamp(0, 1) for y in (ye, yq))
+    noise = torch.rand(e01.shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    out = {"ssim": float(ssim(e01, q01))}
+    for name, layers, seed in (("cos", (1, 1, 1, 1), 3), ("cos_iresnet50", (3, 4, 14, 3), 4)):
+        emb = make_embed_fn(init_params_(IResNet(layers=layers), seed, gain=1.0).to(dev).eval())
+        out[name] = float(face_id_cosine(emb, e01, q01))
+        out[name + "_noise"] = float(face_id_cosine(emb, e01, noise))
+    print(f"int8 gates (saved-image space, {e01.shape[0]} images): ssim {out['ssim']:.5f} (> 0.9), face-ID cosine "
+          f"{out['cos']:.5f} (>= 0.98; to noise {out['cos_noise']:.5f}), IResNet-50 cosine "
+          f"{out['cos_iresnet50']:.5f} (to noise {out['cos_iresnet50_noise']:.5f})")
+    if not (out["ssim"] > 0.9 and out["cos"] >= 0.98 and out["cos"] > out["cos_noise"] + 0.3):
+        raise AssertionError(f"int8 decode fails its quality gates: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
@@ -1637,6 +2110,7 @@ def main(argv=None) -> int:
     from ppvision_tpu_torch.ops import DEID_KERNELS, KERNELS, _build
 
     torch.set_grad_enabled(False)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1647,6 +2121,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     secs = _build.build_all()
     print(f"kernel build: {secs:.1f} s")
     for name in _build.CUDA_SOURCES:
@@ -1655,31 +2138,41 @@ def main(argv=None) -> int:
         if "C7513" in report or "C7515" in report:
             raise AssertionError(f"ptxas serialized the wgmmas of csrc/{name}.cu")
 
+    t0 = time.perf_counter()
     corr_record, corr_bounds = check_corr(torch, dev)
     records = [*check_fftconv(torch, dev), *check_denseblock(torch, dev),
                *check_instats(torch, dev), *check_conv3x3(torch, dev), corr_record]
+    phase_s["kernel_checks"] = time.perf_counter() - t0
     for r in records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
-    launches = serve_main_path(torch, KERNELS, DEID_KERNELS)
-    gpu_vs_cpu(torch)
-    throughput(torch, card)
-    video = video_path(torch, KERNELS)
-    raft_checks(torch, video["pairs"])
-    raft_matmul_conv(torch)
-    raft_throughput(torch, video["pairs"], card, video["seconds"], corr_bounds)
-    check_train_grads(torch, dev)
-    train = train_path(torch, KERNELS, card)
-    train_gpu_vs_cpu(torch, KERNELS)
-    ref_ds_study(torch, KERNELS)
-    int8_records = check_int8(torch, dev)
-    int8_launches = serve_int8(torch, KERNELS, card)
-    remat_check(torch, card)
-    cli_phase(torch, KERNELS, card)
+    launches = phase("serve", serve_main_path, torch, KERNELS, DEID_KERNELS)
+    phase("gpu_vs_cpu", gpu_vs_cpu, torch)
+    phase("throughput", throughput, torch, card)
+    video = phase("video", video_path, torch, KERNELS)
+    phase("raft_checks", raft_checks, torch, video["pairs"])
+    phase("raft_matmul_conv", raft_matmul_conv, torch)
+    phase("raft_throughput", raft_throughput, torch, video["pairs"], card, video["seconds"], corr_bounds)
+    phase("train_grads", check_train_grads, torch, dev)
+    train = phase("train", train_path, torch, KERNELS, card)
+    phase("train_gpu_vs_cpu", train_gpu_vs_cpu, torch, KERNELS)
+    int8_records = phase("int8_checks", check_int8, torch, dev)
+    int8_launches = phase("int8_serve", serve_int8, torch, KERNELS, card)
+    phase("remat", remat_check, torch, card)
+    phase("cli", cli_phase, torch, KERNELS, card)
+    finish_eval = phase("eval", eval_phase, torch, KERNELS, card)
+    phase("ref_ds_study", ref_ds_study, torch, KERNELS)  # the eval's FIDs run beside it on the host
+    evals = phase("eval_fids", finish_eval)
+    phase("eval_gpu_vs_cpu", eval_gpu_vs_cpu, torch)
+    phase("metric_nets_gpu_vs_cpu", metric_nets_gpu_vs_cpu, torch)
+    phase("align", align_phase, torch, KERNELS, card)
+    print(json.dumps({"phase_s": phase_s, "build_s": secs, "total_s": time.perf_counter() - t_start, "card": card}))
 
     # A record takes its launches from the run of its path: the served
-    # run, the video phase or the train phase's 3 steps.
-    runs = {"deid": launches, "video": video["launches"], "train": train["launches"]}
+    # run, the video phase, the train phase's 3 steps or the eval's
+    # latent run.
+    runs = {"deid": launches, "video": video["launches"], "train": train["launches"],
+            "eval": evals["latent"]["launches"]}
     for r in records:
         r["launches"] = runs[r["path"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

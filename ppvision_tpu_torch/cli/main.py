@@ -1,15 +1,17 @@
-"""Face-DeId CLI: train / sample (reference ``main.py`` modes).
+"""Face-DeId CLI: train / sample / eval / align (reference ``main.py`` modes).
 
 Port of ``ppvision_tpu/cli/main.py``.  Usage:
 
     python -m ppvision_tpu_torch.cli.main --mode train --train_img_dir ... --ref_dir ...
     python -m ppvision_tpu_torch.cli.main --mode sample --src_dir ... --ref_dir ... [--video]
+    python -m ppvision_tpu_torch.cli.main --mode eval --val_img_dir ... [--allow_random_metrics]
+    python -m ppvision_tpu_torch.cli.main --mode align --inp_dir ... --out_dir ...
 
 The flags are the JAX CLI's (the reference argparse surface,
 main.py:86-198), with its names and defaults from the typed config
 tree, plus ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 PyTorch path).  Training runs on one device: data parallelism is not
-ported.  ``--mode eval`` and ``--mode align`` are not ported yet.
+ported.
 """
 
 from __future__ import annotations
@@ -36,7 +38,17 @@ from ..utils.checkpoint import StepCheckpoints, restore_train_state, save_train_
 from ..utils.device import resolve_device
 from ..utils.logging import MetricWriter
 
-__all__ = ["build_parser", "config_from_args", "main", "run_sample", "run_train", "run_video", "video_from_arrays"]
+__all__ = [
+    "build_parser",
+    "config_from_args",
+    "main",
+    "run_align",
+    "run_eval",
+    "run_sample",
+    "run_train",
+    "run_video",
+    "video_from_arrays",
+]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -225,6 +237,74 @@ def run_video(cfg, bundle) -> dict:
     return out
 
 
+def _wing_fan(cfg, dtype, device) -> "torch.nn.Module":
+    """The clean-image FAN from ``wing_path`` (state_dict names), in
+    ``dtype``; its seeded init with a loud warning where the file is
+    absent."""
+    from ..models.fan import FAN
+    from ..models.stargan import init_params_
+
+    fan = init_params_(FAN(dtype=dtype), 0, gain=1.0)
+    if os.path.exists(cfg.paths.wing_path):
+        fan.load_state_dict(load_state_dict_file(cfg.paths.wing_path))
+    else:
+        warn_random_init("FAN (wing.ckpt)", cfg.paths.wing_path)
+    return fan.to(resolve_device(device)).eval().requires_grad_(False)
+
+
+def run_eval(cfg, allow_random_metrics: bool = False, aligned_face_id: bool = False, device="cuda") -> dict:
+    """``--mode eval``: the de-id bundle with the restored weights
+    (``restore_deid_params``), the pretrained metric nets that exist, and
+    ``calculate_metrics`` in latent and reference mode on
+    ``val_img_dir``, written under ``eval_dir``.  Returns ``{mode:
+    metrics}``."""
+    from ..metrics.eval_gan import calculate_metrics, load_metric_nets
+
+    if aligned_face_id and not os.path.exists(cfg.paths.wing_path):
+        # Checked before the bundle is built, so it fails at once.
+        raise FileNotFoundError(
+            f"--aligned_face_id needs the wing FAN checkpoint at {cfg.paths.wing_path} (clean-image landmarks)"
+        )
+    bundle = restore_deid_params(build_deid(cfg.train.seed, cfg, device), cfg)
+    metric_nets = load_metric_nets(cfg.paths, bundle.device)
+    align_fan = _wing_fan(cfg, bundle.compute_dtype, bundle.device) if aligned_face_id else None
+    out = {}
+    for mode in ("latent", "reference"):
+        out[mode] = calculate_metrics(
+            bundle, cfg.paths.val_img_dir, mode=mode, num_outs=cfg.train.num_outs_per_domain,
+            out_dir=cfg.paths.eval_dir, allow_random_metrics=allow_random_metrics, align_fan=align_fan, **metric_nets,
+        )
+        for k, v in out[mode].items():
+            print(f"{k}: {v:.4f}")
+    return out
+
+
+def run_align(cfg, inp_dir: str, out_dir: str, device="cuda") -> None:
+    """``--mode align``: each image of ``inp_dir`` resized to ``img_size``,
+    aligned to the CelebA mean landmarks (``lm_path``, or every landmark at
+    the centre where it is absent) by the wing FAN, written under the same
+    name to ``out_dir`` (reference align_faces, wing.py:446-467)."""
+    from PIL import Image
+
+    from ..models.align import FaceAligner
+
+    fan = _wing_fan(cfg, None, device)
+    if os.path.exists(cfg.paths.lm_path):
+        mean_lm = np.load(cfg.paths.lm_path)["mean"]
+    else:
+        mean_lm = np.tile([[128.0, 128.0]], (98, 1))
+    aligner = FaceAligner(fan, mean_lm, cfg.model.img_size)
+    os.makedirs(out_dir, exist_ok=True)
+    for fname in sorted(os.listdir(inp_dir)):
+        img = Image.open(os.path.join(inp_dir, fname)).convert("RGB")
+        img = img.resize((cfg.model.img_size,) * 2, Image.BILINEAR)
+        x = np.asarray(img, np.float32)[None] / 255.0 * 2.0 - 1.0
+        aligned = aligner.align(x)[0]
+        out = np.clip((aligned * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+        Image.fromarray(out).save(os.path.join(out_dir, fname))
+        print(f"Saved the aligned image to {fname}...")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -233,10 +313,9 @@ def main(argv=None):
         return run_train(cfg, args.use_wandb, args.device)
     if args.mode == "sample":
         return run_sample(cfg, args.num_sample_batches, video=args.video, device=args.device)
-    raise NotImplementedError(
-        f"--mode {args.mode} is not ported to ppvision_tpu_torch yet "
-        "(ROADMAP.md, section 1, item 5: GAN eval and align)"
-    )
+    if args.mode == "align":
+        return run_align(cfg, args.inp_dir, args.out_dir, device=args.device)
+    return run_eval(cfg, args.allow_random_metrics, args.aligned_face_id, device=args.device)
 
 
 if __name__ == "__main__":

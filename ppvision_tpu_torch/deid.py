@@ -28,7 +28,14 @@ from .optics.camera import Camera, CameraConstants, CameraSpec, camera_apply, ma
 from .utils.device import resolve_device
 from .utils.validate import check_image_batch, check_labels
 
-__all__ = ["DeIdBundle", "build_deid", "deid_from_reference", "deid_from_latent", "deid_multi_style"]
+__all__ = [
+    "DeIdBundle",
+    "build_deid",
+    "deid_from_latent",
+    "deid_from_reference",
+    "deid_from_styles",
+    "deid_multi_style",
+]
 
 
 @dataclasses.dataclass
@@ -126,21 +133,27 @@ def deid_from_latent(bundle: DeIdBundle, x_src, z, y_trg) -> torch.Tensor:
 
 
 @torch.no_grad()
-def deid_multi_style(bundle: DeIdBundle, x_src, x_ref, y_ref) -> torch.Tensor:
-    """All (reference style, source) anonymizations: (R, B, H, W, 3) f32.
+def deid_from_styles(bundle: DeIdBundle, x_src, styles: torch.Tensor) -> torch.Tensor:
+    """Anonymizations of ``x_src`` (B, H, W, 3) under each row of style
+    codes ``styles`` (R, B, style_dim): (R, B, H, W, 3) f32.
 
     The privacy front and the generator's encoder run once at batch B;
     the style-modulated decoder runs once per style into a preallocated
     buffer in the compute dtype, cast to f32 once at the end
     (deid.py:173-188 of the JAX package)."""
     x_priv, masks = _privacy_front(bundle, x_src)
-    s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
     gen = bundle.generator
     z, hps = gen.encode(_nchw(x_priv), masks)
-    r = s_ref.shape[0]
     b, h, w, _ = x_src.shape
-    fakes = torch.empty((r, b, h, w, 3), dtype=bundle.compute_dtype, device=bundle.device)
-    for i in range(r):
-        sb = s_ref[i : i + 1].expand(b, -1)
+    fakes = torch.empty((styles.shape[0], b, h, w, 3), dtype=bundle.compute_dtype, device=bundle.device)
+    for i, sb in enumerate(styles):
         fakes[i] = _nhwc(gen.decode(z, sb, hps))
     return fakes.float()
+
+
+@torch.no_grad()
+def deid_multi_style(bundle: DeIdBundle, x_src, x_ref, y_ref) -> torch.Tensor:
+    """All (reference style, source) anonymizations: (R, B, H, W, 3) f32,
+    one style per reference face."""
+    s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
+    return deid_from_styles(bundle, x_src, s_ref[:, None].expand(-1, x_src.shape[0], -1))

@@ -11,6 +11,10 @@ state_dict names (``alexnet.layers.{0,3,6,8,10}``,
 ``lpips_weights.{i}.main.1.weight``), so its weights load directly;
 :func:`lpips_state_dict_from_reference` maps a torchvision AlexNet
 state_dict (``features.N``) and ``lpips_weights.ckpt`` onto them.
+
+For evaluation, :func:`make_pairwise_lpips_fn` gives every pairwise
+distance among a group of outputs from one AlexNet pass over the group
+(the reference's ``calculate_lpips_given_images``, lpips.py:75-88).
 """
 
 from __future__ import annotations
@@ -21,7 +25,14 @@ from torch import nn
 
 from ..models.stargan import Conv
 
-__all__ = ["ALEX_CHANNELS", "AlexNetFeatures", "LPIPS", "lpips_state_dict_from_reference"]
+__all__ = [
+    "ALEX_CHANNELS",
+    "AlexNetFeatures",
+    "LPIPS",
+    "calculate_lpips_given_images",
+    "lpips_state_dict_from_reference",
+    "make_pairwise_lpips_fn",
+]
 
 # The [-1, 1]-range ImageNet statistics, kept in f64 and rounded to the
 # input's dtype at use, as the JAX package canonicalizes them.
@@ -77,21 +88,26 @@ class LPIPS(nn.Module):
             for m in self.lpips_weights:
                 m.main[1].weight.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The five channel-normalized AlexNet maps (NCHW) of an NHWC batch."""
         mu = torch.tensor(_MU, dtype=x.dtype, device=x.device)
         sigma = torch.tensor(_SIGMA, dtype=x.dtype, device=x.device)
-        fx = self.alexnet(((x - mu) / sigma).permute(0, 3, 1, 2))
-        fy = self.alexnet(((y - mu) / sigma).permute(0, 3, 1, 2))
+        fs = self.alexnet(((x - mu) / sigma).permute(0, 3, 1, 2))
+        return [f * torch.rsqrt(torch.sum(f * f, dim=1, keepdim=True) + 1e-10) for f in fs]
 
-        def normalize(f):
-            return f * torch.rsqrt(torch.sum(f * f, dim=1, keepdim=True) + 1e-10)
-
+    def distance(self, fa: list[torch.Tensor], fb: list[torch.Tensor]) -> torch.Tensor:
+        """The distance of two sets of normalized maps with leading dims
+        (..., C, H, W), averaged over their last leading dim and the
+        pixels: shape ``(...)`` less that dim."""
         total = 0.0
-        for a, b, lin in zip(fx, fy, self.lpips_weights):
-            d = torch.square(normalize(a) - normalize(b))
+        for a, b, lin in zip(fa, fb, self.lpips_weights):
+            d = torch.square(a - b)
             w = lin.main[1].weight.flatten().to(d.dtype)
-            total = total + torch.mean(torch.einsum("bchw,c->bhw", d, w))
+            total = total + torch.mean(torch.einsum("...chw,c->...hw", d, w), dim=(-3, -2, -1))
         return total
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return self.distance(self.features(x), self.features(y))
 
 
 def lpips_state_dict_from_reference(alexnet_sd, lpips_sd) -> dict[str, torch.Tensor]:
@@ -108,3 +124,30 @@ def lpips_state_dict_from_reference(alexnet_sd, lpips_sd) -> dict[str, torch.Ten
         key = f"lpips_weights.{i}.main.1.weight"
         out[key] = torch.as_tensor(lpips_sd[key])
     return out
+
+
+def make_pairwise_lpips_fn(lpips: LPIPS, num_outs: int):
+    """All pairwise distances among a group of outputs:
+    ``fn(fakes: (R, B, H, W, 3)) -> (C(R, 2),)``, in ``np.triu_indices(R,
+    k=1)`` order, the values of the reference's pairwise loop
+    (lpips.py:75-88).  AlexNet runs once over the R*B outputs, and the
+    pairs reduce over the cached, normalized features."""
+    ii, jj = (torch.from_numpy(t) for t in np.triu_indices(num_outs, k=1))
+
+    @torch.no_grad()
+    def pairwise(fakes: torch.Tensor) -> torch.Tensor:
+        r, b = fakes.shape[:2]
+        feats = [f.reshape(r, b, *f.shape[1:]) for f in lpips.features(fakes.reshape(r * b, *fakes.shape[2:]))]
+        i, j = ii.to(fakes.device), jj.to(fakes.device)
+        return lpips.distance([f[i] for f in feats], [f[j] for f in feats])
+
+    return pairwise
+
+
+def calculate_lpips_given_images(lpips: LPIPS, group_of_images: list) -> float:
+    """Mean pairwise LPIPS across a group of outputs for the same input
+    (reference lpips.py:75-88); 0 for fewer than two."""
+    if len(group_of_images) < 2:
+        return 0.0
+    fakes = torch.stack([torch.as_tensor(g) for g in group_of_images])
+    return float(make_pairwise_lpips_fn(lpips, len(group_of_images))(fakes).mean())

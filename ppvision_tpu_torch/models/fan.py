@@ -38,6 +38,7 @@ __all__ = [
     "FAN",
     "preprocess_heatmaps",
     "get_heatmap",
+    "estimate_landmarks",
 ]
 
 NUM_LANDMARKS = 98
@@ -352,3 +353,16 @@ def get_heatmap(
     if delimiter:
         hm[..., :33] = 0.0
     return preprocess_heatmaps(hm)
+
+
+@torch.no_grad()
+def estimate_landmarks(fan: FAN, x: torch.Tensor) -> torch.Tensor:
+    """(B, 98, 2) landmark (row, col) coordinates x4 of an NHWC batch in
+    [-1, 1] (``estimate_landmark``, wing.py:289-298): the flat argmax of
+    each heatmap, the 33 jaw channels zeroed."""
+    out = fan((x * 0.5 + 0.5).permute(0, 3, 1, 2)).float()
+    hm = out[:, :NUM_LANDMARKS].clone()
+    hm[:, :33] = 0.0
+    b, c, h, w = hm.shape
+    idx = torch.argmax(hm.reshape(b, c, h * w), dim=-1)
+    return torch.stack([idx // w, idx % w], dim=-1).float() * 4.0

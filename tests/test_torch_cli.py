@@ -55,7 +55,9 @@ def _train_args(tmp, total: int, ck: str) -> list[str]:
             "--debug_dir", str(tmp / "debug"), "--device", "cpu"]
 
 
-def test_flags_are_the_jax_clis_plus_device():
+def test_flags_are_the_jax_clis_plus_device(tmp_path, monkeypatch):
+    """The flags, and the dispatch of ``--mode eval`` (which refuses random
+    metric nets without ``--allow_random_metrics``) and ``--mode align``."""
     from ppvision_tpu.cli.main import build_parser as jax_parser
 
     def flags(p):
@@ -64,9 +66,16 @@ def test_flags_are_the_jax_clis_plus_device():
     assert flags(cli.build_parser()) == flags(jax_parser()) | {"--device"}
     args = cli.build_parser().parse_args(["--mode", "sample"])
     assert args.device == "cuda" and args.img_size == 256 and args.remat is False
-    for mode in ("eval", "align"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(["--mode", mode, "--device", "cpu"])
+    missing = [a for k in ("lpips_path", "alexnet_path", "inception_path", "arcface_path")
+               for a in (f"--{k}", str(tmp_path / "none"))]
+    _faces(tmp_path / "val", 6, n=1, hw=(IMG, IMG))
+    with pytest.raises(RuntimeError, match="allow_random_metrics"):
+        cli.main(["--mode", "eval", *TINY, *missing, "--val_img_dir", str(tmp_path / "val"),
+                  "--checkpoint_save_dir", str(tmp_path / "ck"), "--device", "cpu"])
+    seen = []
+    monkeypatch.setattr(cli, "run_align", lambda *a, **kw: seen.append((a[1:], kw)))
+    cli.main(["--mode", "align", "--inp_dir", "faces", "--out_dir", "aligned", "--device", "cpu"])
+    assert seen == [(("faces", "aligned"), {"device": "cpu"})]
 
 
 @pytest.fixture(scope="module")

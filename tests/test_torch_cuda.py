@@ -72,11 +72,14 @@ def _dense_block_args(rng, dev, b, h, f):
 
 # Every shape the two paths give the kernel (chip_smoke.DENSEBLOCK_SHAPES:
 # FAN at the served batch of 8, which the interpolation video shares, and
-# at the video's 16), one image, and odd sizes whose tiles are ragged.
+# at the video's 16), the eval's aligned embed at a source batch's 80
+# outputs (its largest and smallest), one image, and odd sizes whose
+# tiles are ragged.
 @pytest.mark.parametrize(
     "b,f,h",
     [(8, 128, 64), (8, 256, 64), (8, 256, 32), (8, 256, 16), (8, 256, 8), (8, 256, 4),
      (16, 128, 64), (16, 256, 64), (16, 256, 32), (16, 256, 16), (16, 256, 8), (16, 256, 4),
+     (80, 128, 64), (80, 256, 4),
      (1, 256, 64), (1, 128, 5), (4, 128, 5), (2, 256, 7), (3, 128, 7)],
 )
 def test_dense_block_kernel_matches_plain(dev, b, f, h):
@@ -160,13 +163,15 @@ def test_moments_kernel_is_bitwise_repeatable(dev, shape):
 
 
 # The paths' shapes, among them those whose tiles span images (8^2, 4^2)
-# and K = 64 (a 64-wide output-channel tile); K = 16 and 80 (a masked
-# last tile); a ragged edge; a tile of three 4^2 images.
+# and K = 64 (a 64-wide output-channel tile); the eval's style encoder at
+# a source batch's 80 reference faces (its largest and smallest); K = 16
+# and 80 (a masked last tile); a ragged edge; a tile of three 4^2 images.
 @pytest.mark.parametrize(
     "shape",
     [(8, 128, 128, 128, 128), (8, 64, 64, 128, 256), (10, 4, 4, 512, 512), (2, 5, 7, 48, 32),
      (16, 256, 256, 64, 64), (16, 128, 128, 64, 128), (8, 16, 16, 512, 512), (8, 8, 8, 512, 512),
-     (8, 32, 32, 512, 512), (2, 8, 8, 32, 16), (2, 9, 12, 64, 80), (3, 4, 4, 64, 64)],
+     (8, 32, 32, 512, 512), (80, 128, 128, 64, 128), (80, 4, 4, 512, 512),
+     (2, 8, 8, 32, 16), (2, 9, 12, 64, 80), (3, 4, 4, 64, 64)],
 )
 def test_conv3x3_kernel_matches_plain(dev, shape):
     b, h, w, c, k = shape
@@ -580,3 +585,56 @@ def test_bf16_ref_ds_gap_is_rounding_not_a_kernel(dev):
     for seed in (0, 1):
         for key in ("x_fake_vs_f32", "x_fake2_vs_f32"):
             assert rows[seed, "kernels"][key] <= 1.5 * rows[seed, "plain"][key], (seed, key)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation and alignment (metrics/eval_gan.py, models/align.py).
+# ---------------------------------------------------------------------------
+
+
+def test_align_pad_and_warp_on_the_card_match_cpu(dev):
+    """The aligner's mirror-pad, blur and LANCZOS4 warp on the card against
+    the CPU on the same image and matrices (a similarity whose window runs
+    partly off the image): within 1e-2 on the 0-255 scale."""
+    from ppvision_tpu_torch.models.align import pad_mirror, warp_lanczos4
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.random((2, 256, 256, 3)) * 255).astype(np.float32))
+    a, t = 0.25, (140.0, -60.0)
+    mats = np.stack([np.array([[np.cos(a), -np.sin(a), t[0]], [np.sin(a), np.cos(a), t[1]], [0, 0, 1]])] * 2)
+    want = warp_lanczos4(pad_mirror(x), mats, (256, 256))
+    got = warp_lanczos4(pad_mirror(x.to(dev)), mats, (256, 256)).cpu()
+    assert float((got - want).abs().max()) <= 1e-2
+    assert 0.05 < float((want == 0).float().mean()) < 0.95
+
+
+def test_calculate_metrics_on_the_card_matches_cpu(dev):
+    """``chip_smoke.eval_gpu_vs_cpu``: the 64^2 f32 evaluation on the card
+    and on the CPU, every LPIPS and FaceIDcos value within 1e-3."""
+    import chip_smoke
+
+    errs = chip_smoke.eval_gpu_vs_cpu(torch)
+    assert max(v for k, v in errs.items() if not k.startswith("FID")) <= chip_smoke.EVAL_CARD_CPU_TOL
+
+
+def test_int8_decode_passes_its_quality_gates(dev):
+    """``chip_smoke.int8_gates`` (``tests/test_quant.py``'s SSIM > 0.9 and
+    face-ID cosine >= 0.98) on the exact and int8 outputs of a 64^2 de-id
+    bundle (max_conv_dim 64) on the card, B = 8, R = 2."""
+    import dataclasses
+
+    import chip_smoke
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig
+    from ppvision_tpu_torch.deid import build_deid, deid_multi_style
+
+    cfg = FaceDeIdConfig(model=ModelConfig(img_size=64, style_dim=16, latent_dim=8, max_conv_dim=64),
+                         camera=CameraConfig(n=32))
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, quant_decode=True))
+    rng = np.random.default_rng(13)
+    xs = torch.from_numpy(rng.random((8, 64, 64, 3), dtype=np.float32))
+    xr = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
+    yr = torch.zeros(2, dtype=torch.long)
+    ye = deid_multi_style(build_deid(0, cfg, device="cuda"), xs, xr, yr)
+    yq = deid_multi_style(build_deid(0, qcfg, device="cuda"), xs, xr, yr)
+    gates = chip_smoke.int8_gates(torch, ye, yq)
+    assert gates["ssim"] > 0.9 and gates["cos"] >= 0.98

@@ -61,3 +61,26 @@ def test_reference_files_load_into_the_port(setup):
     assert set(port.state_dict()) == set(sd)
     got = float(port(torch.from_numpy(x), torch.from_numpy(y)))
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+def test_pairwise_lpips_matches_jax(setup):
+    """``make_pairwise_lpips_fn`` (AlexNet once over the R*B outputs, the
+    C(R, 2) pairs in ``np.triu_indices`` order) and
+    ``calculate_lpips_given_images`` against the JAX package's."""
+    from ppvision_tpu.metrics.lpips import calculate_lpips_given_images as j_mean
+    from ppvision_tpu.metrics.lpips import make_pairwise_lpips_fn as j_pairwise
+    from ppvision_tpu_torch.metrics.lpips import calculate_lpips_given_images, make_pairwise_lpips_fn
+
+    _, _, params, _, _ = setup
+    fakes = np.random.default_rng(2).uniform(-1, 1, (4, 2, 64, 64, 3)).astype(np.float32)
+    port = LPIPS()
+    port.load_state_dict(jax_params.lpips_state_dict(params))
+    want = np.asarray(j_pairwise(params, 4)(jnp.asarray(fakes)))
+    got = make_pairwise_lpips_fn(port, 4)(torch.from_numpy(fakes)).numpy()
+    assert got.shape == want.shape == (6,)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    with torch.no_grad():
+        i, j = np.triu_indices(4, k=1)
+        assert abs(got[2] - float(port(torch.from_numpy(fakes[i[2]]), torch.from_numpy(fakes[j[2]])))) <= 1e-5 * got[2]
+    want = j_mean(JLPIPS(), params, [jnp.asarray(f) for f in fakes[:3]])
+    assert abs(calculate_lpips_given_images(port, [torch.from_numpy(f) for f in fakes[:3]]) - want) <= 1e-5 * want
