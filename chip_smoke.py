@@ -105,7 +105,22 @@ What it does, in order; any failure raises and exits non-zero:
    CPU in f32;
 20. the face aligner (``models/align.py``, ``--mode align``'s) on 8
    seeded 256^2 faces, card against CPU, with its ms an image split into
-   the FAN, the mirror-pad and blur, and the LANCZOS4 warp.
+   the FAN, the mirror-pad and blur, and the LANCZOS4 warp;
+21. the captioning path (``caption_phase``) at full width: which of h5py,
+   nltk, cv2 and PIL import (the lens's mask rule follows cv2);
+   ``make_caption_train_step`` for 3 steps at ``CaptionConfig()`` (widths
+   512, 36x36 features) with ``cli/caption.py::_setup``'s ``LensSpec()``
+   (896^2 wave grid, 350 terms) and bf16 ResNet-101, B = 64, 52-token
+   captions, a 9,490-entry word map: s/step, peak GiB, the losses finite,
+   the stem fixed, the BN statistics moved; the same with ``remat``;
+   ``evaluate_captions`` on 32 in-memory 256^2 images (batch 16, beam 5,
+   50 steps) split into camera, encoder, beam search, image metrics and
+   text metrics, with captions/s, PSNR and SSIM; one small-width f32 step
+   and a beam search card against CPU; ``cli/caption.py train`` (1 epoch
+   of 2 steps at B = 4) and ``eval``.  Where h5py or nltk does not
+   import, only that host piece is swapped (in-memory splits for
+   ``CaptionDataset``; NaN stand-ins for BLEU, METEOR and ROUGE-Lsum), and
+   the phase says so.  No port kernel may launch in it.
 
 Each phase's seconds print as it ends, and all of them on one JSON line
 with the build's and the total.  The last four lines of standard output
@@ -2102,6 +2117,495 @@ def int8_gates(torch, ye, yq) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Captioning (cli/caption.py's path): the lens, the ResNet-101 encoder, the
+# attention-LSTM decoder, beam search, training and eval.  No port kernel
+# runs on it: the lens's image formation is torch.fft, the trunk cuDNN.
+# ---------------------------------------------------------------------------
+
+CAPTION_B = 64  # CaptionConfig().batch_size: the reference recipe's batch
+CAPTION_LEN = 52  # tokens a caption: <start>, max_len 50 words, <end>
+CAPTION_WORDS = 9490  # entries of the Karpathy COCO word map at min_word_freq=5
+CAPTION_STEPS = 3
+CAPTION_EVAL_IMAGES = 32
+CAPTION_EVAL_BATCH = 16  # evaluate_captions' batch
+CAPTION_CPI = 5  # captions an image (COCO's Karpathy split)
+CAPTION_CLI_B = 4
+CAPTION_DIR = os.path.join(OUT_DIR, "caption")
+CAPTION_TEXT_SCORERS = ("bleu_scores", "meteor_avg", "rouge_lsum")  # nltk's; cider_score is pure Python
+CAPTION_CARD_CPU_TOL = 1e-5  # f32 metrics and beam scores, relative, card against CPU (TF32 off)
+# The f32 step's applied gradients and new BN statistics, relative norm,
+# card against CPU.  The encoder's is loose: at this width its layer3-4
+# BNs normalize 16-256 values a channel, their input gradients cancel, and
+# the card's BN backward accumulates in f32 where the CPU's accumulates
+# in f64.  The f64 step holds the card's backward to CAPTION_F64_TOL.
+CAPTION_GRAD_TOL = {"camera": 1e-3, "encoder": 1e-2, "decoder": 1e-4, "encoder_bn_stats": 1e-5}
+CAPTION_F64_TOL = 1e-10  # the f64 step: metrics relative, gradients and BN statistics relative norm
+CAPTION_TRAIN_SPANS = ("caption.camera", "caption.encoder", "caption.decoder", "caption.loss", "caption.optimizer")
+CAPTION_EVAL_SPANS = ("caption.camera", "caption.encoder", "caption.beam_search", "caption.image_metrics")
+
+
+def caption_word_map(n: int = CAPTION_WORDS) -> dict[str, int]:
+    """A word map shaped as ``data/caption.py`` writes one: words 1..n-4,
+    then <unk>, <start>, <end>, and <pad> = 0 (n entries)."""
+    wm = {f"w{i}": i for i in range(1, n - 3)}
+    wm.update({"<unk>": n - 3, "<start>": n - 2, "<end>": n - 1, "<pad>": 0})
+    return wm
+
+
+def caption_tokens(rng, n: int, word_map: dict, length: int = CAPTION_LEN) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` encoded captions (``<start> w... <end> <pad>*``, ``length`` wide)
+    of seeded lengths, the first one full, and their lengths."""
+    caps = np.zeros((n, length), np.int32)
+    lens = rng.integers(8, length + 1, n).astype(np.int32)
+    lens[0] = length
+    for i, ln in enumerate(lens):
+        caps[i, 0], caps[i, ln - 1] = word_map["<start>"], word_map["<end>"]
+        caps[i, 1 : ln - 1] = rng.integers(1, len(word_map) - 3, ln - 2)
+    return caps, lens
+
+
+def smooth_images(n: int, size: int, seed: int) -> np.ndarray:
+    """(n, size, size, 3) f32 in [0, 1], each its own seeded smooth image."""
+    return np.stack([smooth_frames(1, size, seed + i)[0] for i in range(n)])
+
+
+class ArrayCaptions:
+    """An in-memory caption split with ``CaptionDataset``'s interface
+    (``split``, ``cpi``, ``len``, items (image, caption, length[, all
+    captions])): the card's machine has no h5py."""
+
+    def __init__(self, split: str, n_images: int, word_map: dict, seed: int, size: int = 256):
+        rng = np.random.default_rng(seed)
+        self.split, self.cpi = split, CAPTION_CPI
+        self.images = smooth_images(n_images, size, seed)
+        self.captions, self.caplens = caption_tokens(rng, n_images * self.cpi, word_map)
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, i: int):
+        img = self.images[i // self.cpi]
+        if self.split == "TRAIN":
+            return img, self.captions[i], self.caplens[i]
+        lo = (i // self.cpi) * self.cpi
+        return img, self.captions[i], self.caplens[i], self.captions[lo : lo + self.cpi]
+
+
+def caption_host_packages() -> dict:
+    """Which of the caption path's host packages import here, and the
+    lens's mask rule."""
+    import importlib
+
+    def imports(name: str) -> bool:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return False
+        return True
+
+    have = {m: imports(m) for m in ("h5py", "nltk", "cv2", "PIL")}
+    print(f"caption host packages: {json.dumps(have)}; the lens's mask rule: "
+          f"{'cv2.circle' if have['cv2'] else 'the exact disk r <= 32 (no cv2)'}")
+    return have
+
+
+class nan_text_scores:
+    """Without nltk, ``metrics/eval_caption.py``'s BLEU, METEOR and
+    ROUGE-Lsum scorers are swapped for stand-ins that return NaN (the
+    BLEU-4 save gate then saves nothing); CIDEr stays the real one."""
+
+    def __init__(self, active: bool):
+        self.active = active
+
+    def __enter__(self):
+        from ppvision_tpu_torch.metrics import eval_caption
+
+        self.saved = {k: getattr(eval_caption, k) for k in CAPTION_TEXT_SCORERS}
+        if self.active:
+            nan = float("nan")
+            eval_caption.bleu_scores = lambda r, h: {f"bleu{i}": nan for i in range(1, 5)}
+            eval_caption.meteor_avg = lambda r, h: nan
+            eval_caption.rouge_lsum = lambda r, h: nan
+            print("caption: no nltk on this machine: BLEU-1..4, METEOR and ROUGE-Lsum report NaN "
+                  "(stand-ins); CIDEr, PSNR and SSIM are the real ones; the CLI's BLEU-4 gate saves nothing")
+
+    def __exit__(self, *exc):
+        from ppvision_tpu_torch.metrics import eval_caption
+
+        for k, v in self.saved.items():
+            setattr(eval_caption, k, v)
+
+
+def caption_batch(rng, b: int, word_map: dict, dev, size: int = 256) -> dict:
+    import torch
+
+    caps, lens = caption_tokens(rng, b, word_map)
+    return dict(images=torch.from_numpy(smooth_images(b, size, int(rng.integers(1 << 30)))).to(dev),
+                captions=torch.from_numpy(caps).to(dev), caption_lengths=torch.from_numpy(lens).to(dev))
+
+
+def caption_train(torch, remat: bool) -> dict:
+    """``CAPTION_STEPS`` steps of ``make_caption_train_step`` at the recipe
+    (``CaptionConfig()``: widths 512, 36x36 features, dropout 0.5, the
+    three Adams; ``cli/caption.py::_setup``: ``LensSpec()`` and the
+    ResNet-101 in bf16), B = 64, 52-token captions, a 9,490-entry word
+    map; seconds a step (host clock, synchronized) and peak GiB."""
+    import dataclasses
+
+    from ppvision_tpu_torch.cli import caption as cli
+    from ppvision_tpu_torch.config import CaptionConfig
+    from ppvision_tpu_torch.train.caption import make_caption_train_step
+
+    cfg = dataclasses.replace(CaptionConfig(), remat=remat)
+    dev = "cuda"
+    word_map = caption_word_map()
+    spec, consts, state = cli._setup(cfg, len(word_map) + 1, dev)
+    step = make_caption_train_step(cfg, spec, consts)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(41)
+    batches = [caption_batch(rng, CAPTION_B, word_map, dev) for _ in range(CAPTION_STEPS + 1)]
+    before = {k: v.clone() for k, v in state.encoder.state_dict().items()}
+    dec_before = {k: v.clone() for k, v in state.decoder.state_dict().items()}
+    defocus0 = float(state.camera.defocus.detach())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for b in batches[:CAPTION_STEPS]:
+        t0 = time.perf_counter()
+        metrics = step(state, b, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = "remat" if remat else "plain"
+    for i, (s, m) in enumerate(zip(secs, losses)):
+        print(f"caption train ({tag}) step {i}: {s:.3f} s; {json.dumps(m)}")
+    sd = state.encoder.state_dict()
+    cam_p = state.camera.zernike_coeffs_train
+    cam_m = state.opt_camera.state[cam_p]["exp_avg"]
+    checks = {
+        "finite": all(math.isfinite(v) for m in losses for v in m.values()),
+        "camera_gradient": bool(torch.isfinite(cam_m).all() and (cam_m != 0).all()),
+        "stem_unchanged": torch.equal(sd["conv1.weight"], before["conv1.weight"])
+        and all(torch.equal(sd[k], before[k]) for k in sd if k.startswith("layer1.") and "running" not in k
+                and "num_batches" not in k),
+        "encoder_moved": not torch.equal(sd["layer4.0.conv2.weight"], before["layer4.0.conv2.weight"]),
+        "decoder_moved": not torch.equal(state.decoder.state_dict()["fc.weight"], dec_before["fc.weight"]),
+        "bn_stats_changed": all(not torch.equal(sd[k], before[k]) for k in sd if k.endswith("running_var")),
+    }
+    defocus = float(state.camera.defocus.detach())
+    print(f"caption train ({tag}): B {CAPTION_B}, {CAPTION_LEN}-token captions, vocab {len(word_map) + 1}: "
+          f"s/step {[round(s, 4) for s in secs]}, peak {peak:.2f} GiB; defocus {defocus0} -> {defocus} (lr "
+          f"{cfg.camera_lr}: below half an f32 ulp at -22, ROADMAP.md section 3); checks {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"caption train ({tag}): {checks}")
+    profile = None
+    if not remat:
+        # One more step under the profiler: the device's share of a step,
+        # and (a second step) its device time by part.
+        profile = device_profile(torch, lambda: step(state, batches[-1], gen), f"caption train step (B {CAPTION_B})",
+                                 CAPTION_TRAIN_SPANS)
+    return dict(state=state, spec=spec, consts=consts, word_map=word_map, secs=secs, peak_gib=peak,
+                losses=losses, profile=profile)
+
+
+def device_profile(torch, fn, what: str, spans: tuple[str, ...] = ()) -> dict:
+    """``fn`` once under ``torch.profiler``, the device's activity only:
+    its seconds (synchronized host clock), the device's busy ms and idle
+    share, the device ms by kind and the top kernels.  With ``spans``,
+    ``fn`` once more with the host's ops recorded too, for
+    :func:`device_ms_by_span`."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    kinds = {
+        "batch_norm": lambda k: "batch_norm" in k or "bn_fw" in k or "bn_bw" in k,
+        "cudnn_and_gemm": lambda k: any(n in k for n in ("xmma", "conv", "dgrad", "wgrad", "gemm", "cutlass", "sm90")),
+        "fft": lambda k: "fft" in k,
+        "elementwise": lambda k: "elementwise" in k,
+        "reduce": lambda k: "reduce" in k or "softmax" in k,
+    }
+    by_kind = {}
+    for e in events:
+        kind = next((n for n, f in kinds.items() if f(e.key.lower())), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    line = {"what": what, "s": secs, "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / (secs * 1e3)),
+            "device_ms_by_kind": by_kind}
+    print(events.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=60))
+    if spans:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        line["device_ms_by_span"], line["backward_device_ms_by_node"] = device_ms_by_span(prof.events(), spans)
+    print(json.dumps(line))
+    return line
+
+
+def device_ms_by_span(events, spans: tuple[str, ...]) -> tuple[dict, dict]:
+    """Each kernel's device ms to the innermost of ``spans`` (host
+    ``record_function`` ranges) around the op that launched it, else to
+    ``backward`` if autograd's engine launched it, else to ``other``; and
+    the backward's ms by autograd node (the ten largest)."""
+    from torch.autograd import DeviceType
+
+    prefix = "autograd::engine::evaluate_function: "
+    by_span, by_node = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        names, p = [], e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        node = next((n[len(prefix):] for n in reversed(names) if n.startswith(prefix)), None)
+        span = next((n for n in names if n in spans), "backward" if node else "other")
+        by_span[span] = by_span.get(span, 0.0) + ms
+        if node:
+            by_node[node] = by_node.get(node, 0.0) + ms
+    return by_span, dict(sorted(by_node.items(), key=lambda kv: -kv[1])[:10])
+
+
+def caption_eval(torch, trained: dict, have: dict, card: str) -> dict:
+    """``evaluate_captions`` on 32 in-memory 256^2 images (5 captions
+    each), batch 16, beam 5, 50 steps, with the train phase's weights, as
+    its two halves: seconds, captions/s, PSNR and SSIM; the device half
+    profiled once more for its device ms by part (camera, encoder, beam
+    search, image metrics) beside the text metrics' host seconds."""
+    from ppvision_tpu_torch.config import CaptionConfig
+    from ppvision_tpu_torch.metrics import eval_caption
+
+    st, word_map = trained["state"], trained["word_map"]
+    ds = ArrayCaptions("TEST", CAPTION_EVAL_IMAGES, word_map, seed=61)
+    cfg = CaptionConfig()
+
+    def decode():
+        return eval_caption.decode_captions(cfg, st.encoder, st.decoder, (st.camera, trained["consts"],
+                                            trained["spec"]), ds, word_map, batch_size=CAPTION_EVAL_BATCH)
+
+    with nan_text_scores(not have["nltk"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoded = decode()
+        dev_s = time.perf_counter() - t0
+        res = eval_caption.score_captions(decoded)
+        total = time.perf_counter() - t0
+    hyps = decoded["hypotheses"]
+    rate = len(hyps) / total
+    print(f"caption eval: {len(hyps)} images, batch {CAPTION_EVAL_BATCH}, beam {cfg.beam_size}, "
+          f"{cfg.max_caption_len} steps: {total:.3f} s ({rate:.2f} captions/s; device half {dev_s:.3f} s, "
+          f"{len(hyps) / dev_s:.2f} captions/s; text metrics {total - dev_s:.4f} s)")
+    print(f"caption eval results: {json.dumps(res)}; hypotheses {np.mean([len(h) for h in hyps]):.1f} words "
+          f"on average, {sum(not h for h in hyps)} empty")
+    profile = device_profile(torch, decode, "caption eval, device half", CAPTION_EVAL_SPANS)
+    parts = {**{k.removeprefix("caption."): v for k, v in profile["device_ms_by_span"].items()},
+             "text_metrics_host_ms": (total - dev_s) * 1e3}
+    words = set(word_map)
+    ok = (len(hyps) == CAPTION_EVAL_IMAGES and all(w in words for h in hyps for w in h)
+          and all(len(r) == CAPTION_CPI for r in decoded["references"]) and math.isfinite(res["cider"])
+          and math.isfinite(res["psnr"]) and 0.0 <= res["ssim"] <= 1.0 and len(decoded["psnrs"]) == len(hyps))
+    if not ok:
+        raise AssertionError(f"caption eval: results wrong: {res}")
+    print(json.dumps({"caption_eval": {"seconds": total, "captions_per_s": rate, "parts_ms": parts,
+                                       "psnr": res["psnr"], "ssim": res["ssim"], "cider": res["cider"]},
+                      "card": card}))
+    return dict(seconds=total, parts_ms=parts, rate=rate, psnr=res["psnr"], ssim=res["ssim"], profile=profile)
+
+
+def caption_gpu_vs_cpu(torch) -> dict:
+    """One train step at a small width (ResNet stages (1, 1, 1, 1), widths
+    64, 4x4 features, 64^2 images, the lens at ``LensSpec(128, 64, 16)``
+    without height noise, dropout 0, ``camera_lr`` 1e-2, B = 4, a
+    200-entry word map) on the card (TF32 off) and on the CPU from the
+    same seeded weights and batch, in f32 and in f64: the metrics, each
+    module's applied gradient and the encoder's new BN statistics held
+    within ``CAPTION_CARD_CPU_TOL`` and ``CAPTION_GRAD_TOL`` in f32 and
+    ``CAPTION_F64_TOL`` in f64.  The applied gradient is read from Adam:
+    after its first step its ``exp_avg`` is (1 - beta1) times it.  Then
+    beam search (beam 5, 20 steps) on the card's updated f32 weights and
+    on a CPU copy of them: the tokens identical, the scores within
+    ``CAPTION_CARD_CPU_TOL``."""
+    import copy
+
+    from ppvision_tpu_torch.config import CaptionConfig
+    from ppvision_tpu_torch.models.captioner import beam_search_batch
+    from ppvision_tpu_torch.optics.lens import LensSpec, make_lens_constants
+    from ppvision_tpu_torch.train.caption import init_caption, make_caption_train_step, make_optimizers
+
+    cfg = CaptionConfig(emb_dim=64, attention_dim=64, decoder_dim=64, encoded_image_size=4, dropout=0.0,
+                        camera_lr=1e-2)
+    spec = LensSpec(wave_res=128, patch_size=64, zernike_terms=16, height_tolerance=0.0)
+    word_map = caption_word_map(200)
+    rng = np.random.default_rng(71)
+    caps, lens = caption_tokens(rng, 4, word_map, length=14)
+    batch = dict(images=torch.from_numpy(smooth_images(4, 64, 72)), captions=torch.from_numpy(caps),
+                 caption_lengths=torch.from_numpy(lens))
+
+    def applied(opt) -> torch.Tensor:
+        beta1 = opt.param_groups[0]["betas"][0]
+        return torch.cat([opt.state[p]["exp_avg"].double().flatten().cpu() / (1 - beta1)
+                          for p in opt.param_groups[0]["params"]])
+
+    def one_step(dev: str, dtype):
+        state = init_caption(0, cfg, len(word_map) + 1, spec, encoder_stages=(1, 1, 1, 1), device=dev)
+        for m in (state.camera, state.encoder, state.decoder):
+            m.to(dtype)
+        state.opt_camera, state.opt_encoder, state.opt_decoder = make_optimizers(
+            cfg, state.camera, state.encoder, state.decoder)
+        step = make_caption_train_step(cfg, spec, make_lens_constants(spec, dtype=dtype, device=dev))
+        b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev) for k, v in batch.items()}
+        metrics = step(state, b, torch.Generator(device=dev).manual_seed(0))
+        got = {m: applied(getattr(state, f"opt_{m}")) for m in ("camera", "encoder", "decoder")}
+        got["encoder_bn_stats"] = torch.cat([v.double().flatten().cpu() for k, v in state.encoder.state_dict().items()
+                                             if k.endswith(("running_mean", "running_var"))])
+        return {k: float(v) for k, v in metrics.items()}, got, state
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out, bad = {}, []
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        (mc, gc, _), (mg, gg, card_state) = (one_step(dev, dtype) for dev in ("cpu", "cuda"))
+        rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc}
+        grad_rel = {m: float((gg[m] - gc[m]).norm() / gc[m].norm()) for m in gc}
+        out[name] = dict(rel=rel, grad_rel=grad_rel)
+        tol = CAPTION_F64_TOL if dtype == torch.float64 else CAPTION_CARD_CPU_TOL
+        grad_tol = dict.fromkeys(gc, CAPTION_F64_TOL) if dtype == torch.float64 else CAPTION_GRAD_TOL
+        bad += [f"{name} {k}" for k, v in rel.items() if not v <= tol]
+        bad += [f"{name} {m}" for m, v in grad_rel.items() if not v <= grad_tol[m]]
+        print(f"caption card vs CPU ({name}, small width): metrics rel {json.dumps(rel)} (tol {tol}); applied "
+              f"gradients and BN statistics, relative norm {json.dumps(grad_rel)} (tol {json.dumps(grad_tol)})")
+        if dtype == torch.float32:
+            f32_decoder = card_state.decoder
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    feats = torch.from_numpy(np.random.default_rng(73).standard_normal((3, 4, 4, 2048), dtype=np.float32))
+    cpu_dec = copy.deepcopy(f32_decoder).cpu()
+    start, end = word_map["<start>"], word_map["<end>"]
+    bs_card = beam_search_batch(f32_decoder.eval(), feats.cuda(), start, end, 5, 20)
+    bs_cpu = beam_search_batch(cpu_dec.eval(), feats, start, end, 5, 20)
+    same_tokens = torch.equal(bs_card[0].cpu(), bs_cpu[0])
+    score_rel = float(((bs_card[1].cpu() - bs_cpu[1]).abs() / bs_cpu[1].abs().clamp_min(1e-6)).max())
+    print(f"caption card vs CPU: beam tokens identical {same_tokens}, scores rel {score_rel:.3e}")
+    if bad or not same_tokens or not score_rel <= CAPTION_CARD_CPU_TOL:
+        raise AssertionError(f"caption on the card departs from the CPU's: {bad}, tokens {same_tokens}")
+    return dict(**out, same_tokens=same_tokens, score_rel=score_rel)
+
+
+def write_caption_split(folder: str, name: str, ds: ArrayCaptions) -> None:
+    """``ds`` as the files ``data/caption.py`` writes: the uint8 images in
+    HDF5 and the encoded captions and lengths in JSON."""
+    import h5py
+
+    with h5py.File(os.path.join(folder, f"{ds.split}_IMAGES_{name}.hdf5"), "w") as h:
+        h.attrs["captions_per_image"] = ds.cpi
+        h.create_dataset("images", data=np.rint(ds.images * 255).astype(np.uint8))
+    for what, arr in (("CAPTIONS", ds.captions), ("CAPLENS", ds.caplens)):
+        with open(os.path.join(folder, f"{ds.split}_{what}_{name}.json"), "w") as f:
+            json.dump(arr.tolist(), f)
+
+
+def caption_cli(torch, have: dict) -> dict:
+    """``cli/caption.py`` at full width as a user runs it: ``train`` for 1
+    epoch of 2 steps at B = 4 (its epoch-end eval on 4 VAL images), then
+    ``eval --split TEST`` on 4 images, with ``CaptionDataset`` (HDF5)
+    swapped for in-memory splits where h5py does not import, and the
+    nltk scorers for NaN stand-ins where nltk does not.  Each step's
+    seconds print; ``metrics.jsonl`` and the eval's reports must exist."""
+    import shutil
+
+    from ppvision_tpu_torch.cli import caption as cli
+
+    shutil.rmtree(CAPTION_DIR, ignore_errors=True)
+    os.makedirs(CAPTION_DIR)
+    word_map = caption_word_map()
+    name = "coco_5_cap_per_img_5_min_word_freq"
+    with open(os.path.join(CAPTION_DIR, f"WORDMAP_{name}.json"), "w") as f:
+        json.dump(word_map, f)
+    n_images = {"TRAIN": 2 * CAPTION_CLI_B // CAPTION_CPI + 1, "VAL": 4, "TEST": 4}
+    saved = cli.CaptionDataset, cli.make_caption_train_step
+    iters = []
+
+    def timed_step(*a, **kw):
+        step = saved[1](*a, **kw)
+
+        def run(state, batch, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch, gen)
+            torch.cuda.synchronize()
+            iters.append(time.perf_counter() - t0)
+            print(f"caption cli train step {len(iters)}: {iters[-1]:.3f} s; batch "
+                  f"{ {k: list(v.shape) for k, v in batch.items()} }")
+            return out
+
+        return run
+
+    splits = {k: ArrayCaptions(k, n, word_map, seed=80 + len(k)) for k, n in n_images.items()}
+    if have["h5py"]:
+        for split, ds in splits.items():
+            write_caption_split(CAPTION_DIR, name, ds)
+    else:
+        print("caption cli: no h5py on this machine: CaptionDataset (HDF5) swapped for in-memory splits of "
+              f"seeded 256^2 images, {CAPTION_CPI} captions each: {json.dumps(n_images)} images")
+        cli.CaptionDataset = lambda folder, base, split: splits[split]
+    cli.make_caption_train_step = timed_step
+    common = ["--data_folder", CAPTION_DIR, "--data_name", name, "--out_dir", CAPTION_DIR, "--device", "cuda"]
+    try:
+        with nan_text_scores(not have["nltk"]):
+            t0 = time.perf_counter()
+            cli.main(["train", *common, "--epochs", "1", "--batch_size", str(CAPTION_CLI_B)])
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = cli.main(["eval", *common, "--split", "TEST", "--max_images", "4"])
+            eval_s = time.perf_counter() - t0
+    finally:
+        cli.CaptionDataset, cli.make_caption_train_step = saved
+    ckpt = [f for f in os.listdir(CAPTION_DIR) if f.endswith("_caption_state.ckpt")]
+    reports = [f for f in ("metrics.jsonl", "metrics.json", "Captions.txt", "Metrics.txt")
+               if not os.path.exists(os.path.join(CAPTION_DIR, f))]
+    print(f"caption cli: train {train_s:.1f} s (set-up and the epoch-end eval included), eval {eval_s:.1f} s; "
+          f"steps {[round(s, 3) for s in iters]}; checkpoints saved {ckpt}; eval {json.dumps(res)}")
+    if len(iters) != 2 or reports or not math.isfinite(res["cider"]) or (not have["nltk"] and ckpt):
+        raise AssertionError(f"caption cli: steps {len(iters)}, missing {reports}, checkpoints {ckpt}")
+    return dict(train_s=train_s, eval_s=eval_s, steps=iters)
+
+
+def caption_phase(torch, kernels, card: str) -> dict:
+    """The captioning path at full width: train (plain, then remat), the
+    eval on the plain run's weights, card against CPU, and the CLI; the
+    launch counts set to 0 just before and read just after: no port
+    kernel may launch on it.  One JSON line sums it up."""
+    have = caption_host_packages()
+    for fn in kernels.values():
+        fn.launches = 0
+    plain = caption_train(torch, remat=False)
+    evals = caption_eval(torch, plain, have, card)
+    plain.pop("state")
+    torch.cuda.empty_cache()
+    remat = caption_train(torch, remat=True)
+    remat.pop("state")
+    torch.cuda.empty_cache()
+    vs = caption_gpu_vs_cpu(torch)
+    cli_run = caption_cli(torch, have)
+    launched = {k: fn.launches for k, fn in kernels.items()}
+    print(f"caption phase: port kernel launches {json.dumps(launched)} (the caption path reaches no Pallas kernel)")
+    if any(launched.values()):
+        raise AssertionError(f"a port kernel launched on the caption path: {launched}")
+    summary = {"B": CAPTION_B, "caption_len": CAPTION_LEN, "vocab": CAPTION_WORDS + 1,
+               "train_s_per_step": plain["secs"], "train_peak_gib": plain["peak_gib"],
+               "train_profile": plain["profile"],
+               "remat_s_per_step": remat["secs"], "remat_peak_gib": remat["peak_gib"], "eval": evals,
+               "card_vs_cpu": vs, "cli": cli_run, "host_packages": have}
+    print(json.dumps({"caption": summary, "card": card}))
+    return summary
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
@@ -2166,6 +2670,7 @@ def main(argv=None) -> int:
     phase("eval_gpu_vs_cpu", eval_gpu_vs_cpu, torch)
     phase("metric_nets_gpu_vs_cpu", metric_nets_gpu_vs_cpu, torch)
     phase("align", align_phase, torch, KERNELS, card)
+    phase("caption", caption_phase, torch, KERNELS, card)
     print(json.dumps({"phase_s": phase_s, "build_s": secs, "total_s": time.perf_counter() - t_start, "card": card}))
 
     # A record takes its launches from the run of its path: the served

@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package's layout and names module for
 module (``config``, ``optics``, ``ops``, ``models``, ``metrics``,
-``deid``, ``sample``, ``serve``, ``train``, ``utils``).  Public entry points take and return the JAX
+``data``, ``deid``, ``sample``, ``serve``, ``train``, ``cli``, ``utils``):
+the Face-DeId pipeline and the privacy-preserving captioner.  Public entry points take and return the JAX
 package's NHWC layout; inside, modules run NCHW tensors in
 ``torch.channels_last`` memory format, which hands the hand-written
 Hopper kernels (``csrc/``) NHWC bytes without copies.
@@ -15,6 +16,6 @@ This package imports torch and numpy only: never jax, flax or
 ``ppvision_tpu``.
 """
 
-from .config import CameraConfig, FaceDeIdConfig, ModelConfig
+from .config import CameraConfig, CaptionConfig, FaceDeIdConfig, ModelConfig
 
-__all__ = ["CameraConfig", "FaceDeIdConfig", "ModelConfig"]
+__all__ = ["CameraConfig", "CaptionConfig", "FaceDeIdConfig", "ModelConfig"]

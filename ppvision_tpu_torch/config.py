@@ -1,8 +1,9 @@
-"""Configuration dataclasses of the de-identification pipeline.
+"""Configuration dataclasses of the de-identification and captioning pipelines.
 
-Own copy of the model, loss, training, camera and path sections of
+Own copy of the model, loss, training, camera, path and caption sections of
 ``ppvision_tpu/config.py`` (the reference's ``Face-DeId/main.py:86-198``
-flags and ``Camera/Optics.py:10-36`` geometry); defaults are identical.
+flags and ``Camera/Optics.py:10-36`` geometry; ``Image_Caption/train.py:17-60``);
+defaults are identical.
 """
 
 from __future__ import annotations
@@ -120,3 +121,37 @@ class FaceDeIdConfig:
     train: TrainConfig = TrainConfig()
     camera: CameraConfig = CameraConfig()
     paths: PathsConfig = PathsConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptionConfig:
+    """Image_Caption recipe (reference train.py:17-60)."""
+
+    emb_dim: int = 512
+    attention_dim: int = 512
+    decoder_dim: int = 512
+    dropout: float = 0.5
+    encoded_image_size: int = 36
+    batch_size: int = 64
+    epochs: int = 20
+    encoder_lr: float = 1e-4
+    decoder_lr: float = 5e-4
+    camera_lr: float = 5e-7
+    grad_clip: float = 5.0
+    alpha_c: float = 1.0  # doubly-stochastic attention weight
+    w_caption: float = 0.4
+    w_ssim: float = 6.0
+    w_psf: float = 30.0
+    # Camera fidelity term flavor (reference train.py:60, 171-175):
+    # "SSIM" -> 1 - SSIM(orig, sensor); "MSE" -> 1 - MSE(orig, sensor)
+    # Default "MSE" matches the shipped reference (train.py:59).
+    camera_loss: str = "MSE"
+    zernike_clamp: float = 1.0  # +/- clamp around the defocus init
+    mask_mode: str = "3"  # reference prueba_psf
+    bleu4_gate: float = 0.20  # checkpoint save gate
+    max_caption_len: int = 50
+    beam_size: int = 5
+    # Recompute the ResNet encoder's activations in the backward pass
+    # (torch.utils.checkpoint): the encoder holds the step's biggest
+    # activation store.
+    remat: bool = False

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_bilinear", "avg_pool_2x", "upsample_nearest_2x"]
+__all__ = ["resize_bilinear", "resize_nearest", "avg_pool_2x", "upsample_nearest_2x"]
 
 
 def _bilinear_weights_np(in_size: int, out_size: int, align_corners: bool):
@@ -68,6 +68,18 @@ def resize_bilinear(
     y = torch.einsum("oh,...hw->...ow", mh, x.to(wdt))
     y = torch.einsum("pw,...ow->...op", mw, y)
     return y.to(x.dtype)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize over the last two axes with torch's index rule,
+    source = floor(i * in / out) (``F.interpolate(mode="nearest")``)."""
+    h, w = x.shape[-2], x.shape[-1]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    ridx = torch.from_numpy((np.arange(oh) * h) // oh).to(x.device)
+    cidx = torch.from_numpy((np.arange(ow) * w) // ow).to(x.device)
+    return x.index_select(-2, ridx).index_select(-1, cidx)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Learned optics: Zernike basis, FFT convolution, the Face-DeId camera."""
+"""Learned optics: Zernike basis, FFT convolution, the Face-DeId camera
+and the captioner's Fresnel lens."""
 
 from .camera import (
     Camera,
@@ -10,6 +11,7 @@ from .camera import (
     make_camera_constants,
 )
 from .fourier import fft_conv2d_circular, fft_conv2d_linear, psf2otf_split
+from .lens import LensSpec, OpticsZernike, lens_apply, lens_psf, make_lens_constants
 
 __all__ = [
     "Camera",
@@ -22,4 +24,9 @@ __all__ = [
     "fft_conv2d_circular",
     "fft_conv2d_linear",
     "psf2otf_split",
+    "LensSpec",
+    "OpticsZernike",
+    "lens_apply",
+    "lens_psf",
+    "make_lens_constants",
 ]

@@ -19,6 +19,10 @@ import torch
 
 __all__ = [
     "camera_state_dict",
+    "caption_encoder_state_dict",
+    "decoder_state_dict",
+    "lens_state_dict",
+    "load_caption_params",
     "discriminator_state_dict",
     "fan_state_dict",
     "generator_state_dict",
@@ -277,3 +281,75 @@ def load_train_params(state, params: Mapping[str, Tree], ema_params: Mapping[str
     for name, net in state.ema.items():
         tree = (ema_params or params)[name]
         net.load_state_dict(_TRAIN_STATE_DICTS[name](tree), strict=True)
+
+
+def lens_state_dict(params) -> dict[str, torch.Tensor]:
+    """``LensParams`` (or a dict with its fields) -> the reference
+    ``OpticsZernike``'s ``zernike_coeffs_train`` (1, 1, 1),
+    ``zernike_coeffs_no_train`` (3, 1, 1) and ``zernike_coeffs_no_train2``
+    (T - 4, 1, 1)."""
+    get = params.get if isinstance(params, Mapping) else lambda k: getattr(params, k)
+    return {
+        "zernike_coeffs_train": _t(get("defocus")).reshape(1, 1, 1),
+        "zernike_coeffs_no_train": _t(get("frozen_pre")).reshape(-1, 1, 1),
+        "zernike_coeffs_no_train2": _t(get("frozen_post")).reshape(-1, 1, 1),
+    }
+
+
+def _bn_vars(out: dict, name: str, p: Tree, stats: Tree) -> None:
+    _bn(out, name, {"scale": p["scale"], "bias": p["bias"], "mean": stats["mean"], "var": stats["var"]})
+
+
+def caption_encoder_state_dict(variables: Tree, stage_sizes=(3, 4, 23, 3)) -> dict[str, torch.Tensor]:
+    """``CaptionEncoder`` variables (``{'params', 'batch_stats'}``, the
+    backbone under ``ResNetBackbone_0``) -> torchvision's ResNet names;
+    the inverse of ``torch_import.caption_encoder_variables_from_torch``.
+    A projecting block's ``Conv_0``/``BatchNorm_0`` is its ``downsample``."""
+    params = variables["params"]["ResNetBackbone_0"]
+    stats = variables["batch_stats"]["ResNetBackbone_0"]
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, "conv1", params["Conv_0"])
+    _bn_vars(out, "bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    blk = 0
+    for stage, n in enumerate(stage_sizes):
+        for b in range(n):
+            name, p, st = f"layer{stage + 1}.{b}", params[f"Bottleneck_{blk}"], stats[f"Bottleneck_{blk}"]
+            first = 0
+            if b == 0:
+                _conv(out, f"{name}.downsample.0", p["Conv_0"])
+                _bn_vars(out, f"{name}.downsample.1", p["BatchNorm_0"], st["BatchNorm_0"])
+                first = 1
+            for j in range(3):
+                _conv(out, f"{name}.conv{j + 1}", p[f"Conv_{first + j}"])
+                _bn_vars(out, f"{name}.bn{j + 1}", p[f"BatchNorm_{first + j}"], st[f"BatchNorm_{first + j}"])
+            blk += 1
+    return out
+
+
+def decoder_state_dict(tree: Tree) -> dict[str, torch.Tensor]:
+    """``AttentionLSTMDecoder`` params -> the reference
+    ``DecoderWithAttention`` names; the inverse of
+    ``torch_import.decoder_params_from_torch`` (the two LSTM Dense layers
+    are ``decode_step``'s ih and hh halves)."""
+    out: dict[str, torch.Tensor] = {}
+    for jax_name, name in (("att_enc", "attention.encoder_att"), ("att_dec", "attention.decoder_att"),
+                           ("att_full", "attention.full_att"), ("init_h", "init_h"), ("init_c", "init_c"),
+                           ("f_beta", "f_beta"), ("fc", "fc")):
+        _linear(out, name, tree[jax_name])
+    out["embedding.weight"] = _t(tree["embedding"]["embedding"])
+    for jax_name, half in (("lstm_x", "ih"), ("lstm_h", "hh")):
+        out[f"decode_step.weight_{half}"] = _t(np.asarray(tree[jax_name]["kernel"]).T)
+        out[f"decode_step.bias_{half}"] = _t(tree[jax_name]["bias"])
+    return out
+
+
+def load_caption_params(state, jax_state) -> None:
+    """Load the JAX package's caption trees (a ``CaptionTrainState``, or any
+    object with ``camera``, ``encoder`` and ``decoder``, as numpy) into a
+    port ``train.caption.CaptionTrainState``, strictly.  The optimizers
+    are left as they are."""
+    state.camera.load_state_dict(lens_state_dict(jax_state.camera), strict=True)
+    state.encoder.load_state_dict(
+        caption_encoder_state_dict(jax_state.encoder, state.encoder.stage_sizes), strict=True
+    )
+    state.decoder.load_state_dict(decoder_state_dict(jax_state.decoder), strict=True)

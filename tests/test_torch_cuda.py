@@ -638,3 +638,20 @@ def test_int8_decode_passes_its_quality_gates(dev):
     yq = deid_multi_style(build_deid(0, qcfg, device="cuda"), xs, xr, yr)
     gates = chip_smoke.int8_gates(torch, ye, yq)
     assert gates["ssim"] > 0.9 and gates["cos"] >= 0.98
+
+
+def test_caption_train_step_and_beam_search_on_the_card_match_cpu(dev):
+    """``chip_smoke.caption_gpu_vs_cpu``: one small-width caption train
+    step on the card and on the CPU from the same weights and batch, in
+    f32 and f64 (the metrics, each module's applied gradient and the new
+    BN statistics within the script's limits: ``CAPTION_F64_TOL`` in
+    f64), and beam search on the same weights on both: the tokens
+    identical."""
+    import chip_smoke
+
+    out = chip_smoke.caption_gpu_vs_cpu(torch)
+    assert out["same_tokens"] and out["score_rel"] <= chip_smoke.CAPTION_CARD_CPU_TOL
+    assert max(out["f32"]["rel"].values()) <= chip_smoke.CAPTION_CARD_CPU_TOL
+    assert all(out["f32"]["grad_rel"][m] <= tol for m, tol in chip_smoke.CAPTION_GRAD_TOL.items())
+    assert set(out["f64"]["grad_rel"]) == set(chip_smoke.CAPTION_GRAD_TOL)
+    assert max(*out["f64"]["rel"].values(), *out["f64"]["grad_rel"].values()) <= chip_smoke.CAPTION_F64_TOL

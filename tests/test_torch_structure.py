@@ -30,6 +30,10 @@ names = [m.name for m in pkgutil.walk_packages(ppvision_tpu_torch.__path__, "ppv
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ppvision_tpu"))
+caption = {"ppvision_tpu_torch." + m for m in (
+    "optics.lens", "models.resnet", "models.captioner", "train.caption", "data.caption", "metrics.text",
+    "metrics.eval_caption", "metrics.val_caption", "cli.caption", "cli.caption_image")}
+assert caption <= set(names), sorted(caption - set(names))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -104,6 +108,58 @@ def test_entry_points_refuse_a_missing_gpu():
         build_deid(0, torch_cfg())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_raft()
+    from ppvision_tpu_torch.cli import caption, caption_image
+    from ppvision_tpu_torch.config import CaptionConfig
+    from ppvision_tpu_torch.optics.lens import LensSpec
+    from ppvision_tpu_torch.train.caption import init_caption
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_caption(0, CaptionConfig(), 10, LensSpec())
+    for argv in (["train"], ["eval"], ["heat", "--img_dir", "none"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            caption.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        caption_image.main(["--img", "none.png"])
+
+
+def test_caption_weights_round_trip_through_reference_names():
+    """The lens, the caption encoder and the decoder: JAX tree ->
+    jax_params -> port module -> state_dict() -> torch_import's
+    ``lens_params_from_torch``, ``caption_encoder_variables_from_torch``
+    and ``decoder_params_from_torch`` give back the same trees, bit for bit."""
+    from ppvision_tpu.models.captioner import AttentionLSTMDecoder as JaxDecoder
+    from ppvision_tpu.models.resnet import CaptionEncoder as JaxEncoder
+    from ppvision_tpu.optics.lens import LensSpec as JaxSpec
+    from ppvision_tpu.optics.lens import init_lens_params
+    from ppvision_tpu_torch.models.captioner import AttentionLSTMDecoder
+    from ppvision_tpu_torch.models.resnet import CaptionEncoder
+    from ppvision_tpu_torch.optics.lens import LensSpec, OpticsZernike
+
+    stages = (1, 2, 1, 1)
+    sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}  # noqa: E731
+    lens_p = init_lens_params(JaxSpec(zernike_terms=16))._replace(defocus=np.float32(-3.5))
+    lens_p = lens_p._replace(frozen_post=np.arange(12, dtype=np.float32) / 7)
+    lens = OpticsZernike(LensSpec(zernike_terms=16))
+    lens.load_state_dict(jax_params.lens_state_dict(numpy_tree(lens_p)), strict=True)
+    assert lens.zernike_coeffs_train.shape == (1, 1, 1) and lens.zernike_coeffs_no_train2.shape == (12, 1, 1)
+    back = ti.lens_params_from_torch(sd(lens))
+    for name in ("defocus", "frozen_pre", "frozen_post"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)), np.asarray(getattr(lens_p, name)))
+
+    x = jax.numpy.zeros((1, 32, 32, 3))
+    variables = numpy_tree(jax.jit(JaxEncoder(encoded_image_size=3, stage_sizes=stages).init)(jax.random.key(2), x))
+    enc = CaptionEncoder(3, stages)
+    enc.load_state_dict(jax_params.caption_encoder_state_dict(variables, stages), strict=True)
+    assert "layer2.1.conv3.weight" in sd(enc) and "layer3.0.downsample.1.running_var" in sd(enc)
+    _assert_same_tree(ti.caption_encoder_variables_from_torch(sd(enc), stages), dict(variables))
+
+    dec = JaxDecoder(vocab_size=11, embed_dim=8, decoder_dim=6, attention_dim=5)
+    tree = numpy_tree(jax.jit(dec.init)(jax.random.key(3), jax.numpy.zeros((1, 2, 2, 2048)),
+                                        jax.numpy.zeros((1, 4), jax.numpy.int32), jax.numpy.asarray([4]))["params"])
+    port = AttentionLSTMDecoder(11, 8, 6, 5)
+    port.load_state_dict(jax_params.decoder_state_dict(tree), strict=True)
+    assert "decode_step.weight_ih" in sd(port) and "attention.full_att.bias" in sd(port)
+    _assert_same_tree(ti.decoder_params_from_torch(sd(port)), tree)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from ppvision_tpu.config import CameraConfig, FaceDeIdConfig, ModelConfig
 from ppvision_tpu.deid import DeIdBundle, DeIdParams
@@ -105,3 +107,25 @@ def diff_stats(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
     """(p99, max) of |a - b|."""
     d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
     return float(np.quantile(d, 0.99)), float(d.max())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op torch threads for a test module's small nets (import it
+    into the module to use it): the parallel test workers share the
+    host's cores, and more threads a worker only spin."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def stand_in_kernels(events):
+    """A CPU profile's events, each given its self CPU time as one kernel:
+    the CPU's stand-in for the kernels a profile on the card attaches to
+    the ops that launch them (``chip_smoke.device_ms_by_span``)."""
+    from torch.autograd.profiler_util import Kernel
+
+    for e in events:
+        e.kernels = [Kernel("k", 0, e.self_cpu_time_total)] if e.self_cpu_time_total > 0 else []
+    return events
