@@ -120,7 +120,26 @@ What it does, in order; any failure raises and exits non-zero:
    of 2 steps at B = 4) and ``eval``.  Where h5py or nltk does not
    import, only that host piece is swapped (in-memory splits for
    ``CaptionDataset``; NaN stand-ins for BLEU, METEOR and ROUGE-Lsum), and
-   the phase says so.  No port kernel may launch in it.
+   the phase says so.  No port kernel may launch in it;
+22. data parallelism (``multigpu_phase``): two gloo ranks start, each a
+   process of its own sharing the card, and build while this process
+   runs, at world size 1 on NCCL and with cuDNN's deterministic
+   algorithms, a ``FaceDeIdConfig()`` train step (B = 4), a served batch
+   (128x128, B = 8, R = 10) and a ``CaptionConfig()`` step (B = 64), each
+   with and without the mesh: outputs, metrics, parameters, EMA,
+   optimizer state and BN statistics bit for bit, the same kernel
+   launches (served: conv3x3 93, instats 145, denseblock 15, fftconv 1);
+   then the ranks take one f32 train step (B = 4), serve one f32 batch
+   and take one f32 ``CaptionConfig()`` step (B = 64) against this
+   process on the whole batch: each sub-step's averaged gradients
+   within ``MULTI_GRAD_COS`` and ``MULTI_GRAD_NORM`` of this process's
+   while each rank's own before the average falls outside them (then
+   this process's are applied, so each sub-step starts from the same
+   weights), the losses within 1e-3 relative, the outputs within 5e-4,
+   the caption step's applied gradients within the same bounds and its
+   BN statistics within 1e-5; the bytes a step all-reduces, the
+   collectives' seconds (``parallel.*`` ranges) and the caption step's
+   device ms by part in a rank and in one process.
 
 Each phase's seconds print as it ends, and all of them on one JSON line
 with the build's and the total.  The last four lines of standard output
@@ -2606,6 +2625,525 @@ def caption_phase(torch, kernels, card: str) -> dict:
     return summary
 
 
+MULTI_DIR = os.path.join(OUT_DIR, "multigpu")
+MULTI_WORLD = 2  # ranks sharing the one card over gloo
+MULTI_LOCAL_B = 2  # GAN samples a rank: B = 4 over two ranks, TrainConfig().batch_size
+MULTI_SEED = 51
+MULTI_METRIC_TOL = (1e-3, 1e-5)  # rel, abs: tests/test_train_gan.py's bound of a sharded step's losses
+# Each sub-step's averaged f32 gradients against one process's: a floor on
+# the cosine and a bound on |norm ratio - 1|, set between what sound runs
+# and faulty ones read on an H100 (PERF.md, multi-GPU findings).  Sound: 1 - cos up to
+# 6.3e-4 (the caption encoder's 9.9e-4) and |ratio - 1| up to 2.5e-3, f32
+# rounding (an |mean flow| near 0, the mask_org threshold, 33 BNs in the
+# caption trunk); at f64 on the CPU two ranks match one process within
+# 1e-10 (tests/test_torch_sharded_train.py).  Each rank's own gradient
+# before the average, the negative control checked every run: 1 - cos from
+# 0.043 and |ratio - 1| from 0.033.
+MULTI_GRAD_COS = 0.995
+MULTI_GRAD_NORM = 0.01
+MULTI_BN_TOL = 1e-5  # the encoder's new BN statistics, relative norm: CAPTION_GRAD_TOL's
+MULTI_SERVE_TOL = 5e-4  # tests/test_serve.py's bound of the sharded server against one device
+MULTI_TIMEOUT_S = 600
+MULTI_RANK_THREADS = 2  # host threads a rank: the ranks build while this process runs world 1
+# Faults multigpu_ranks can plant in its ranks, to show that its bounds see them.
+MULTI_FAULTS = ("local_skip_mean",)
+
+
+def multigpu_requests(n: int):
+    """(x_ref, y_ref, requests) for the sharded server: R = 10 styles, ``n``
+    128^2 images, from a numpy seed."""
+    rng = np.random.default_rng(MULTI_SEED)
+    x_ref = rng.random((R_STYLES, IMG, IMG, 3), dtype=np.float32)
+    requests = [rng.random((IMG, IMG, 3), dtype=np.float32) for _ in range(n)]
+    return x_ref, np.arange(R_STYLES) % 2, requests
+
+
+def collective_profile(torch, fn, cuda: bool = True) -> dict:
+    """``fn`` once under ``torch.profiler``: each ``parallel.*`` range's
+    calls and host seconds, and, with ``cuda``, the device ms of the
+    kernels launched inside the ranges (``device_ms_by_span``)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {}
+    for e in events:
+        if e.name.startswith("parallel.") and e.device_type == DeviceType.CPU:
+            s = spans.setdefault(e.name, {"calls": 0, "host_s": 0.0})
+            s["calls"] += 1
+            s["host_s"] += e.cpu_time_total / 1e6
+    if cuda:
+        by_span, _ = device_ms_by_span(events, tuple(spans))
+        for name, s in spans.items():
+            s["device_ms"] = by_span.get(name, 0.0)
+    return {"spans": spans, "host_s": sum(s["host_s"] for s in spans.values())}
+
+
+def _gan_tensors(state) -> dict:
+    out = {f"{k}.{n}": t for k, m in state.nets.items() for n, t in m.state_dict().items()}
+    out.update({f"ema.{k}.{n}": t for k, m in state.ema.items() for n, t in m.state_dict().items()})
+    for k, opt in state.optims.items():
+        for i, p in enumerate(p for g in opt.param_groups for p in g["params"]):
+            for name, t in opt.state[p].items():
+                out[f"optim.{k}.{i}.{name}"] = t
+    return out
+
+
+def _caption_tensors(state) -> dict:
+    out = {}
+    for part in ("camera", "encoder", "decoder"):
+        out.update({f"{part}.{k}": v for k, v in getattr(state, part).state_dict().items()})
+    return out
+
+
+def _plain_then_mesh(torch, kernels, mesh, what: str, state, tensors, run) -> dict:
+    """``run(state, i, mesh)``, a train step on the i-th batch, on ``state``
+    without a mesh and on a deep copy of it (made first) under ``mesh``:
+    the metrics, every tensor of ``tensors(state)`` and the kernel
+    launches must agree bit for bit.  Then a second step under the mesh,
+    profiled: the step's bytes all-reduced and its collectives' seconds."""
+    import copy
+
+    start = copy.deepcopy(state)
+    runs = {}
+    for tag, s, m in (("plain", state, None), ("mesh", start, mesh)):
+        t0 = time.perf_counter()
+        mesh.traffic.clear()
+        for k in kernels.values():
+            k.launches = 0
+        metrics = {k: float(v) for k, v in run(s, 0, m).items()}
+        torch.cuda.synchronize()
+        runs[tag] = dict(metrics=metrics, launches={k: f.launches for k, f in kernels.items()},
+                         tensors={k: v.clone() for k, v in tensors(s).items()})
+        print(f"multigpu world 1, {what} ({tag}): {time.perf_counter() - t0:.1f} s")
+    res = {"bytes": dict(mesh.traffic), "collectives": collective_profile(torch, lambda: run(start, 1, mesh))}
+    diff = [k for k, v in runs["plain"]["tensors"].items() if not torch.equal(v, runs["mesh"]["tensors"][k])]
+    res.update(metrics_equal=runs["plain"]["metrics"] == runs["mesh"]["metrics"], tensors_differing=len(diff),
+               tensors=len(runs["plain"]["tensors"]), launches=runs["mesh"]["launches"],
+               launches_equal=runs["plain"]["launches"] == runs["mesh"]["launches"])
+    if not (res["metrics_equal"] and not diff and res["launches_equal"]):
+        raise AssertionError(f"world-1 {what} departs from the no-mesh one: {res}, {diff[:8]}, "
+                             f"{runs['plain']['metrics']} vs {runs['mesh']['metrics']}")
+    return res
+
+
+def multigpu_world1(torch, kernels, card: str) -> dict:
+    """At world size 1 (NCCL, ``cuda:0``): a GAN step at
+    ``FaceDeIdConfig()`` (B = 4), a served batch (128^2, full width, B =
+    8, R = 10) and a caption step at ``CaptionConfig()`` (B = 64), each
+    with and without a mesh from the same seeded state, with cuDNN's
+    deterministic algorithms: metrics, outputs, parameters, EMA,
+    optimizer state and BN statistics bit for bit, the same kernel
+    launches; the bytes each step all-reduces and its collectives'
+    seconds (``_plain_then_mesh``)."""
+    import contextlib
+
+    from ppvision_tpu_torch.cli import caption as cap_cli
+    from ppvision_tpu_torch.config import CaptionConfig, FaceDeIdConfig
+    from ppvision_tpu_torch.deid import build_deid
+    from ppvision_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from ppvision_tpu_torch.serve import DeIdServer
+    from ppvision_tpu_torch.train.caption import make_caption_train_step
+
+    mesh = make_mesh("cuda:0")
+    if mesh.world != 1 or torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"the world-1 mesh is {mesh.world} ranks over {torch.distributed.get_backend()}")
+    out = {}
+
+    cfg = FaceDeIdConfig()
+    batches = train_batches(cfg, 2, TRAIN_B, seed=MULTI_SEED)
+    state, frozen, step = build_trainer(cfg, "cuda")
+
+    def gan_step(s, i, m):
+        with m or contextlib.nullcontext():
+            return step(s, frozen, batches[i] if m is None else shard_batch(m, batches[i], local_batch=TRAIN_B))
+
+    out["gan"] = _plain_then_mesh(torch, kernels, mesh, "GAN step", state, _gan_tensors, gan_step)
+    del state, frozen, step
+    torch.cuda.empty_cache()
+
+    bundle = build_deid(0, config("bfloat16"), device="cuda")
+    x_ref, y_ref, requests = multigpu_requests(SERVE_BATCH)
+    served = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        server = DeIdServer(bundle, x_ref, y_ref, batch_size=SERVE_BATCH, depth=2, mesh=m)
+        server.warmup()
+        for k in kernels.values():
+            k.launches = 0
+        served[tag] = (np.stack(list(server.serve(requests))), {k: f.launches for k, f in kernels.items()})
+    want = {"conv3x3": CONV3X3_PER_STEP, "instats": INSTATS_PER_STEP, "denseblock": DENSEBLOCK_PER_STEP, "fftconv": 1}
+    out["serve"] = dict(outputs_equal=bool(np.array_equal(served["plain"][0], served["mesh"][0])),
+                        launches=served["mesh"][1], launches_equal=served["plain"][1] == served["mesh"][1])
+    if not (out["serve"]["outputs_equal"] and out["serve"]["launches_equal"]
+            and all(served["mesh"][1][k] == n for k, n in want.items())):
+        raise AssertionError(f"world-1 served batch departs from the no-mesh one: {out['serve']}, want {want}")
+    del bundle, served
+    torch.cuda.empty_cache()
+
+    cfg = CaptionConfig()
+    word_map = caption_word_map()
+    rng = np.random.default_rng(MULTI_SEED)
+    cbatches = [caption_batch(rng, CAPTION_B, word_map, "cuda") for _ in range(2)]
+    spec, consts, state = cap_cli._setup(cfg, len(word_map) + 1, "cuda")
+    step = make_caption_train_step(cfg, spec, consts)
+    gens = {}
+
+    def caption_step(s, i, m):
+        gen = gens.setdefault(id(s), torch.Generator(device="cuda").manual_seed(3))
+        with m or contextlib.nullcontext():
+            return step(s, cbatches[i], gen)
+
+    out["caption"] = _plain_then_mesh(torch, kernels, mesh, "caption step", state, _caption_tensors, caption_step)
+    return out
+
+
+def _multigpu_f32_cfg():
+    import dataclasses
+
+    from ppvision_tpu_torch.config import FaceDeIdConfig
+
+    cfg = FaceDeIdConfig()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+
+
+def _multigpu_caption(torch, dev):
+    """The caption step at ``CaptionConfig()`` (``LensSpec()``, the
+    ResNet-101 in f32) on ``dev``, its seeded global batch (B = 64) and
+    its generator: (state, step, batch, generator)."""
+    from ppvision_tpu_torch.cli import caption as cap_cli
+    from ppvision_tpu_torch.config import CaptionConfig
+    from ppvision_tpu_torch.train.caption import init_caption, make_caption_train_step
+
+    cfg = CaptionConfig()
+    word_map = caption_word_map()
+    spec, consts = cap_cli._lens(dev)
+    state = init_caption(0, cfg, len(word_map) + 1, spec, dtype=torch.float32, device=dev)
+    batch = caption_batch(np.random.default_rng(MULTI_SEED), CAPTION_B, word_map, dev)
+    return state, make_caption_train_step(cfg, spec, consts), batch, torch.Generator(device=dev).manual_seed(3)
+
+
+def _caption_readout(torch, state) -> dict:
+    """After a first caption step: each part's applied gradient (Adam's
+    ``exp_avg`` over 1 - beta1) and the encoder's BN statistics, in f64
+    on the host."""
+    def applied(opt):
+        beta1 = opt.param_groups[0]["betas"][0]
+        return torch.cat([opt.state[p]["exp_avg"].double().flatten().cpu() / (1 - beta1)
+                          for p in opt.param_groups[0]["params"]])
+
+    sd = state.encoder.state_dict()
+    return {"camera": applied(state.opt_camera), "encoder": applied(state.opt_encoder),
+            "decoder": applied(state.opt_decoder),
+            "bn_stats": torch.cat([sd[k].double().flatten().cpu() for k in sd if "running" in k])}
+
+
+def span_profile(torch, fn, spans: tuple[str, ...]) -> dict:
+    """``fn`` once under ``torch.profiler`` (host and device): the device
+    ms of its kernels by span (``device_ms_by_span``) and in all."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_span, _ = device_ms_by_span(prof.events(), spans)
+    return {"device_ms_by_span": by_span, "device_ms": sum(by_span.values())}
+
+
+def grad_agreement(torch, got: list, want: list) -> dict:
+    """Cosine, relative error and norm ratio of two gradient lists,
+    concatenated, in f64."""
+    a = torch.cat([g.flatten().double() for g in got])
+    b = torch.cat([g.flatten().double() for g in want])
+    return {"cos": float(a @ b / (a.norm() * b.norm() + 1e-30)), "rel": float((a - b).norm() / (b.norm() + 1e-30)),
+            "norm_ratio": float(a.norm() / (b.norm() + 1e-30))}
+
+
+def _grads_agree(a: dict) -> bool:
+    return a["cos"] >= MULTI_GRAD_COS and abs(a["norm_ratio"] - 1) <= MULTI_GRAD_NORM
+
+
+def multigpu_rank(rank: int, world: int, url: str, out: str, backend: str, fault: str) -> None:
+    """One rank of ``multigpu_ranks``: over gloo every rank shares
+    ``cuda:0``, over NCCL rank r takes ``cuda:r``.  Build the f32 GAN
+    trainer, the f32 sharded server and the f32 caption step, wait for
+    the parent's go, then one GAN step on this rank's block of the seeded
+    batch (profiled on the host): each sub-step's averaged gradients,
+    and this rank's own before the average, held against the parent's,
+    which then replace them; one served batch; one caption step
+    (profiled on the device).  Rank 0 writes the metrics, the
+    gradients' agreement, the outputs, the caption step's applied
+    gradients and BN statistics and the collectives' bytes and seconds
+    under ``out``.  ``fault`` (one of ``MULTI_FAULTS``, or ``none``)
+    plants a fault: ``local_skip_mean`` leaves the generator's skip
+    mean to each rank's own block."""
+    import datetime
+
+    import torch
+
+    import ppvision_tpu_torch.train.gan as gan_mod
+    from ppvision_tpu_torch.deid import build_deid
+    from ppvision_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, process_slice, replicate, shard_batch
+    from ppvision_tpu_torch.serve import DeIdServer
+
+    torch.set_num_threads(MULTI_RANK_THREADS)
+    if fault == "local_skip_mean":
+        import ppvision_tpu_torch.models.stargan as stargan
+
+        stargan.all_reduce_mean = lambda x, mesh=None: x
+    elif fault != "none":
+        raise ValueError(f"no fault {fault!r}")
+    dev = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    initialize_multihost(url, world, rank, device=dev, backend=backend, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(dev)
+        cfg = _multigpu_f32_cfg()
+        teacher, agree, own, local = {}, {}, {}, []
+        averaged = gan_mod.all_reduce_grads
+
+        def recording(grads, mesh=None):
+            local[:] = [g.detach().clone() for g in grads]
+            return averaged(grads, mesh)
+
+        gan_mod.all_reduce_grads = recording
+
+        def hook(sub, by_net):
+            it = iter(local)
+            agree[sub] = {net: grad_agreement(torch, gs, teacher[sub][net]) for net, gs in by_net.items()}
+            own[sub] = {net: grad_agreement(torch, [next(it) for _ in gs], teacher[sub][net])
+                        for net, gs in by_net.items()}
+            return teacher[sub]
+
+        state, frozen, step = build_trainer(cfg, dev, grad_hook=hook)
+        replicate(mesh, (state, frozen))
+        batch = train_batches(cfg, 1, MULTI_LOCAL_B * world, seed=MULTI_SEED)[0]
+        rows = process_slice(MULTI_LOCAL_B * world, mesh)
+        local_batch = shard_batch(mesh, {k: v[rows] for k, v in batch.items()}, local_batch=MULTI_LOCAL_B)
+        x_ref, y_ref, requests = multigpu_requests(SERVE_BATCH)
+        server = DeIdServer(build_deid(0, config("float32"), device=dev), x_ref, y_ref, batch_size=SERVE_BATCH,
+                            depth=2, mesh=mesh)
+        with torch.no_grad():
+            server.warmup()
+        cstate, cstep, cbatch, cgen = _multigpu_caption(torch, dev)
+        replicate(mesh, cstate)
+        crows = process_slice(CAPTION_B, mesh)
+        clocal = shard_batch(mesh, {k: v[crows] for k, v in cbatch.items()}, local_batch=CAPTION_B // world)
+        go = os.path.join(out, "go")
+        deadline = time.monotonic() + MULTI_TIMEOUT_S
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError("no go from the parent")
+            time.sleep(0.05)
+        teacher.update(torch.load(os.path.join(out, "teacher.pt"), map_location=dev, weights_only=True))
+        torch.cuda.synchronize()
+        mesh.traffic.clear()
+        res = {"grads": agree, "own_grads": own}
+
+        def call():
+            with mesh:
+                res["metrics"] = {k: float(v) for k, v in step(state, frozen, local_batch).items()}
+
+        t0 = time.perf_counter()
+        res["collectives"] = collective_profile(torch, call, cuda=False)
+        res["step_s"] = time.perf_counter() - t0
+        res["gan_bytes"] = dict(mesh.traffic)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = list(server.serve(requests if rank == 0 else None))
+        res["serve_s"] = time.perf_counter() - t0
+        del state, frozen, step, server
+        torch.cuda.empty_cache()
+        mesh.traffic.clear()
+
+        def caption_call():
+            with mesh:
+                res["caption_metrics"] = {k: float(v) for k, v in cstep(cstate, clocal, cgen).items()}
+
+        t0 = time.perf_counter()
+        res["caption_profile"] = span_profile(torch, caption_call, CAPTION_TRAIN_SPANS)
+        res["caption_s"] = time.perf_counter() - t0
+        res["caption_bytes"] = dict(mesh.traffic)
+        if rank == 0:
+            np.save(os.path.join(out, "served.npy"), np.stack(outs))
+            torch.save(_caption_readout(torch, cstate), os.path.join(out, "caption0.pt"))
+            with open(os.path.join(out, "rank0.json"), "w") as f:
+                json.dump(res, f)
+        print(f"rank {rank}: done", flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multigpu_ranks(torch, card: str, world: int = MULTI_WORLD, backend: str = "gloo", meanwhile=None,
+                   fault: str = "none") -> dict:
+    """``world`` ranks (``multigpu_rank``), by default two sharing the card
+    over gloo (NCCL refuses two ranks on one GPU), at f32, full width,
+    against the same calls in this process on the whole batch, which run
+    while the ranks start:
+
+    - one GAN step at ``FaceDeIdConfig()`` (two samples a rank: B = 4
+      over two).  Each sub-step's averaged gradients must agree with
+      this process's (``MULTI_GRAD_COS``, ``MULTI_GRAD_NORM``) and each
+      rank's own before the average must not (``_grads_agree``); the
+      ranks then apply this process's, so that every sub-step starts
+      from the same weights and its losses are held within
+      ``MULTI_METRIC_TOL``: left to their own f32 gradients, Adam's first
+      step (about sign(g) * lr) turns rounding on near-zero gradients
+      into lr-sized moves, which carry into the later sub-steps' losses
+      (``tests/test_train_gan.py`` says the same of its sharded step's
+      parameters);
+    - one served batch (B = 8, R = 10), within ``MULTI_SERVE_TOL``;
+    - one caption step at ``CaptionConfig()`` (B = 64): its metrics
+      within ``MULTI_METRIC_TOL``, each part's applied gradient within
+      the GAN step's bounds and the encoder's new BN statistics within
+      ``MULTI_BN_TOL``; the device ms of its parts in a rank and here.
+
+    With ``backend="nccl"`` rank r runs on card r (a machine with
+    ``world`` cards).  ``meanwhile()``, where given, runs first, while
+    the ranks start and build (they wait for this process's go).  With
+    a ``fault`` of ``MULTI_FAULTS`` planted in the ranks the readings
+    print and the call raises unless a bound sees the fault."""
+    import shutil
+
+    from ppvision_tpu_torch.deid import build_deid
+    from ppvision_tpu_torch.parallel.dryrun import Ranks
+    from ppvision_tpu_torch.serve import DeIdServer
+
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    ranks = Ranks("chip_smoke:multigpu_rank", world, MULTI_DIR, (MULTI_DIR, backend, fault), MULTI_TIMEOUT_S)
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        t0 = time.perf_counter()
+        cfg = _multigpu_f32_cfg()
+        teacher = {}
+
+        def record(sub, by_net):
+            teacher[sub] = {net: [g.detach().cpu() for g in gs] for net, gs in by_net.items()}
+
+        state, frozen, step = build_trainer(cfg, "cuda", grad_hook=record)
+        batch = train_batches(cfg, 1, MULTI_LOCAL_B * world, seed=MULTI_SEED)[0]
+        t1 = time.perf_counter()
+        want = {k: float(v) for k, v in step(state, frozen, batch).items()}
+        one_step_s = time.perf_counter() - t1
+        torch.save(teacher, os.path.join(MULTI_DIR, "teacher.pt"))
+        del state, frozen, step, teacher
+        x_ref, y_ref, requests = multigpu_requests(SERVE_BATCH)
+        server = DeIdServer(build_deid(0, config("float32"), device="cuda"), x_ref, y_ref, batch_size=SERVE_BATCH)
+        served = np.stack(list(server.serve(requests)))
+        del server
+        cstate, cstep, cbatch, cgen = _multigpu_caption(torch, "cuda")
+        cwant = {}
+
+        def caption_call():
+            cwant.update({k: float(v) for k, v in cstep(cstate, cbatch, cgen).items()})
+
+        cprofile = span_profile(torch, caption_call, CAPTION_TRAIN_SPANS)
+        cread = _caption_readout(torch, cstate)
+        del cstate, cstep, cbatch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"multigpu ranks: one process's GAN step, batch and caption step {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        open(os.path.join(MULTI_DIR, "go"), "w").close()
+    except BaseException:
+        ranks.kill()
+        raise
+    ranks.wait()
+    print(f"multigpu ranks: after the go {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(MULTI_DIR, "rank0.json")) as f:
+        got = json.load(f)
+    rel, ab = MULTI_METRIC_TOL
+
+    def metric_errors(got_m, want_m):
+        err = {k: abs(got_m[k] - w) for k, w in want_m.items()}
+        off = {k: (got_m[k], want_m[k]) for k, e in err.items() if not e <= max(rel * abs(want_m[k]), ab)}
+        return max(e / max(abs(want_m[k]), ab / rel) for k, e in err.items()), off
+
+    metric_err, off = metric_errors(got["metrics"], want)
+    sharded = np.load(os.path.join(MULTI_DIR, "served.npy"))
+    serve_err = float(np.abs(sharded - served).max()) if sharded.shape == served.shape else math.inf
+    agree = {f"{sub}:{net}": a for sub, by_net in got["grads"].items() for net, a in by_net.items()}
+    own = {f"{sub}:{net}": a for sub, by_net in got["own_grads"].items() for net, a in by_net.items()}
+    low = {k: a for k, a in agree.items() if not _grads_agree(a)}
+    own_pass = {k: a for k, a in own.items() if _grads_agree(a)}
+    cgot = torch.load(os.path.join(MULTI_DIR, "caption0.pt"), weights_only=True)
+    caption_err, caption_off = metric_errors(got["caption_metrics"], cwant)
+    caption_grads = {k: grad_agreement(torch, [cgot[k]], [cread[k]]) for k in ("camera", "encoder", "decoder")}
+    caption_low = {k: a for k, a in caption_grads.items() if not _grads_agree(a)}
+    bn_err = float((cgot["bn_stats"] - cread["bn_stats"]).norm() / cread["bn_stats"].norm())
+    res = dict(metrics_rel_err_max=metric_err, serve_max_abs_err=serve_err,
+               grad_cos_min=min(a["cos"] for a in agree.values()),
+               grad_norm_ratio_off_max=max(abs(a["norm_ratio"] - 1) for a in agree.values()),
+               own_grad_cos_max=max(a["cos"] for a in own.values()),
+               own_grad_norm_ratio_off_min=min(abs(a["norm_ratio"] - 1) for a in own.values()),
+               grads=got["grads"], own_grads=got["own_grads"], collectives=got["collectives"],
+               gan_bytes=got["gan_bytes"], step_s=got["step_s"], one_process_step_s=one_step_s,
+               serve_s=got["serve_s"],
+               caption=dict(metrics_rel_err_max=caption_err, grads=caption_grads, bn_stats_rel_err=bn_err,
+                            bytes=got["caption_bytes"], rank_s=got["caption_s"], rank_profile=got["caption_profile"],
+                            one_process_profile=cprofile))
+    print(json.dumps({"multigpu_ranks": dict(res, world=world, backend=backend, fault=fault), "card": card}))
+    seen = bool(off or low or caption_off or caption_low or not serve_err <= MULTI_SERVE_TOL
+                or not bn_err <= MULTI_BN_TOL)
+    if fault != "none":
+        if not seen:
+            raise AssertionError(f"the planted fault {fault!r} passed every bound")
+        print(f"multigpu ranks: the planted fault {fault!r} was seen: metrics {off}, gradients {sorted(low)}, "
+              f"caption {caption_off} {sorted(caption_low)}, served {serve_err}, BN {bn_err}")
+        return res
+    if seen or own_pass or len(agree) != 6:
+        raise AssertionError(
+            f"the {backend} ranks depart from one process: metrics {off}, gradients {low} of {len(agree)}, "
+            f"own gradients inside the bounds {own_pass}, served {serve_err} (tol {MULTI_SERVE_TOL}), caption "
+            f"metrics {caption_off}, caption gradients {caption_low}, BN statistics {bn_err} (tol {MULTI_BN_TOL})")
+    return res
+
+
+def multigpu_phase(torch, kernels, card: str) -> dict:
+    """The data-parallel port on the one card: ``multigpu_world1`` (NCCL,
+    bit for bit against no mesh), run while the two gloo ranks of
+    ``multigpu_ranks`` start, then those ranks against one process; one
+    JSON line with the bytes all-reduced a GAN and a caption step, the
+    collectives' seconds, and the phase's own."""
+    t0 = time.perf_counter()
+    one = {}
+
+    def world1():
+        # While the gloo ranks start and build; they wait for the go.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            one.update(multigpu_world1(torch, kernels, card))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+    two = multigpu_ranks(torch, card, meanwhile=world1)
+
+    def reduced(traffic):
+        return sum(v for k, v in traffic.items() if k.startswith("all_reduce") or k == "mean_metrics")
+
+    summary = {
+        "world1_nccl": one, "world2_gloo": two,
+        "gan_step_bytes_all_reduced": {"world1": reduced(one["gan"]["bytes"]),
+                                       "world2_rank": reduced(two["gan_bytes"])},
+        "caption_step_bytes_all_reduced": {"world1": reduced(one["caption"]["bytes"]),
+                                           "world2_rank": reduced(two["caption"]["bytes"])},
+        "caption_f32_device_ms": {"one_process_B64": two["caption"]["one_process_profile"],
+                                  "world2_gloo_rank_B32": two["caption"]["rank_profile"]},
+        "gan_step_collective_s": {"world1_nccl": one["gan"]["collectives"]["host_s"],
+                                  "world2_gloo": two["collectives"]["host_s"]},
+        "caption_step_collective_s_world1": one["caption"]["collectives"]["host_s"],
+        "phase_s": time.perf_counter() - t0,
+    }
+    print(json.dumps({"multigpu": summary, "card": card}))
+    return summary
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
 
@@ -2671,6 +3209,7 @@ def main(argv=None) -> int:
     phase("metric_nets_gpu_vs_cpu", metric_nets_gpu_vs_cpu, torch)
     phase("align", align_phase, torch, KERNELS, card)
     phase("caption", caption_phase, torch, KERNELS, card)
+    phase("multigpu", multigpu_phase, torch, KERNELS, card)
     print(json.dumps({"phase_s": phase_s, "build_s": secs, "total_s": time.perf_counter() - t_start, "card": card}))
 
     # A record takes its launches from the run of its path: the served

@@ -1,9 +1,10 @@
 """Captioning CLI: preprocess / train / eval / heat.
 
 Port of ``ppvision_tpu/cli/caption.py`` (reference
-``Image_Caption/{create_input_files,train,eval/*,Camera/Camera_heating}.py``)
-on one device: the JAX CLI's flags, plus ``--device`` (``cuda`` unless
-``cpu`` is asked for) on the subcommands that compute.
+``Image_Caption/{create_input_files,train,eval/*,Camera/Camera_heating}.py``):
+the JAX CLI's flags, plus ``--device`` (``cuda`` unless ``cpu`` is asked
+for) on the subcommands that compute.  ``train`` is data-parallel under
+torchrun (one process a GPU, ``--batch_size`` the global batch).
 
 Usage:
     python -m ppvision_tpu_torch.cli.caption preprocess --karpathy_json ... --image_folder ...
@@ -22,6 +23,7 @@ reads.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -129,12 +131,36 @@ def _batch_tensors(batch: dict, device) -> dict:
 
 
 def run_train(args):
+    """Caption training (reference train.py): ``epochs`` epochs of
+    ``caption_batches``, each followed by the eval and the BLEU-4 save
+    gate.  In a process group (torchrun's environment) it is
+    data-parallel, as the JAX CLI is: every rank builds the same state
+    (replicated from rank 0) and takes its block of each global batch,
+    and the steps run inside ``with mesh:``.  The eval, the save gate,
+    the checkpoint and the writer are the primary's, outside the mesh:
+    inside it the eval's BNs, lens and loss would start collectives the
+    other ranks never join."""
+    from ..parallel.mesh import initialize_multihost, make_mesh
+
+    started = not torch.distributed.is_initialized()
+    mesh = make_mesh(args.device) if initialize_multihost(device=args.device) else None
+    try:
+        return _train(args, mesh)
+    finally:
+        if started and mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, mesh):
     from ..config import CaptionConfig
+    from ..parallel.mesh import is_primary, local_batch_size, replicate, shard_batch
     from ..utils.checkpoint import StepCheckpoints
     from ..utils.device import resolve_device
     from ..utils.logging import MetricWriter
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    primary = is_primary(mesh)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     cfg = CaptionConfig(batch_size=args.batch_size, epochs=args.epochs)
     with open(os.path.join(args.data_folder, f"WORDMAP_{args.data_name}.json")) as f:
         word_map = json.load(f)
@@ -159,16 +185,26 @@ def run_train(args):
             print(f"Resumed captioning training from epoch {latest}")
         else:
             print(f"--resume: no caption_state checkpoint in {args.out_dir}")
+    replicate(mesh, state)
     step_fn = make_caption_train_step(cfg, spec, consts, camera_train=args.camera_train)
-    writer = MetricWriter(args.out_dir, log_interval=50)
+    writer = MetricWriter(args.out_dir, log_interval=50) if primary else None
+    # Every rank draws from the same seed: the dropout masks are drawn for
+    # the global batch, so the generators stay in step.
     gen = torch.Generator(device=dev).manual_seed(1)
     best_bleu4, step = 0.0, 0
-    print(f"Start caption training on {dev}...")
+    print(f"Start caption training on {dev} (rank {rank} of {world})...")
     for epoch in range(start_epoch, cfg.epochs):
-        for batch in caption_batches(train_ds, cfg.batch_size, shuffle=True, seed=epoch):
-            metrics = step_fn(state, _batch_tensors(batch, dev), gen)
+        for batch in caption_batches(train_ds, cfg.batch_size, shuffle=True, seed=epoch, process_index=rank,
+                                     process_count=world):
+            with mesh or contextlib.nullcontext():
+                if mesh is not None:
+                    batch = shard_batch(mesh, batch, local_batch=local_batch_size(cfg.batch_size, mesh))
+                metrics = step_fn(state, _batch_tensors(batch, dev), gen)
             step += 1
-            writer.write(step, metrics)
+            if writer is not None:
+                writer.write(step, metrics)
+        if not primary:
+            continue
         res = evaluate_captions(cfg, state.encoder, state.decoder, (state.camera, consts, spec), val_ds,
                                 word_map, max_images=200)
         writer.write(step, {f"val_{k}": v for k, v in res.items()}, force=True)
@@ -176,7 +212,8 @@ def run_train(args):
         if res["bleu4"] >= cfg.bleu4_gate and res["bleu4"] > best_bleu4:
             best_bleu4 = res["bleu4"]
             ckpts.save(epoch + 1, "caption_state", state.state_dict())
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state
 
 

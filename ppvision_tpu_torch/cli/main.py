@@ -10,13 +10,16 @@ Port of ``ppvision_tpu/cli/main.py``.  Usage:
 The flags are the JAX CLI's (the reference argparse surface,
 main.py:86-198), with its names and defaults from the typed config
 tree, plus ``--device`` (``cuda`` by default; ``cpu`` runs the plain
-PyTorch path).  Training runs on one device: data parallelism is not
-ported.
+PyTorch path).  Training is data-parallel under torchrun, one process a
+GPU (``cuda:LOCAL_RANK``), ``--batch_size`` the global batch:
+
+    torchrun --nproc_per_node=N -m ppvision_tpu_torch.cli.main --mode train ...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 
@@ -25,6 +28,7 @@ import torch
 
 from ..data.face import FaceBatcher, eval_batches
 from ..deid import build_deid, deid_from_reference
+from ..parallel.mesh import initialize_multihost, is_primary, local_batch_size, make_mesh, replicate, shard_batch
 from ..train.gan import init_gan, make_train_step
 from ..train.pretrained import (
     build_aux_losses,
@@ -102,13 +106,32 @@ def config_from_args(args):
 
 
 def run_train(cfg, use_wandb: bool = False, device="cuda"):
-    """The reference Solver's training loop on one device: resume from
-    ``resume_iter`` (or the latest saved step) or warm start, then
-    ``total_iters`` iterations on ``FaceBatcher`` batches with the metric
-    writer, the debug grid every ``debug_every`` and the ``nets``,
-    ``nets_ema``, ``optims`` and ``camera`` groups every ``save_every``
-    (solver.py:92-248).  Returns the train state."""
-    dev = resolve_device(device)
+    """The reference Solver's training loop: resume from ``resume_iter``
+    (or the latest saved step) or warm start, then ``total_iters``
+    iterations on ``FaceBatcher`` batches with the metric writer, the
+    debug grid every ``debug_every`` and the ``nets``, ``nets_ema``,
+    ``optims`` and ``camera`` groups every ``save_every``
+    (solver.py:92-248).  Returns the train state.
+
+    In a process group (torchrun's environment; ``initialize_multihost``)
+    it is data-parallel over a mesh, as the JAX CLI is: every rank builds
+    the same state, which is replicated from rank 0, and its block of
+    each global batch (``FaceBatcher(process_index=, process_count=)``);
+    the steps run inside ``with mesh:``.  The writer, the checkpoints and
+    the debug grid (one process only, as in the JAX CLI) are the
+    primary's, outside the mesh: they start no collective."""
+    started = not torch.distributed.is_initialized()
+    mesh = make_mesh(device) if initialize_multihost(device=device) else None
+    try:
+        return _train(cfg, use_wandb, resolve_device(device) if mesh is None else mesh.device, mesh)
+    finally:
+        if started and mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg, use_wandb: bool, dev: torch.device, mesh):
+    primary = is_primary(mesh)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     state = init_gan(cfg.train.seed, cfg, dev)
     # Pretrained camera + wing FAN + fan_priv decoder (solver.py:44-48, 99).
     frozen = load_frozen_nets(cfg, 1, dev)
@@ -125,23 +148,28 @@ def run_train(cfg, use_wandb: bool = False, device="cuda"):
             print(f"No checkpoint at step {start} in {ckpts.root}; trying warm start")
             start = 0
         warm_start_state(state, cfg)
+    replicate(mesh, (state, frozen))
     # Full paper loss: LPIPS x2000 + RAFT flow x10 (solver.py:161-184).
     lpips_fn, flow_fn = build_aux_losses(cfg, 2, dev)
     step_fn = make_train_step(cfg, lpips_fn=lpips_fn, flow_fn=flow_fn)
-    writer = MetricWriter(cfg.paths.checkpoint_save_dir, use_wandb, cfg.train.print_every)
+    writer = MetricWriter(cfg.paths.checkpoint_save_dir, use_wandb, cfg.train.print_every) if primary else None
     batcher = FaceBatcher(
         cfg.paths.train_img_dir, cfg.paths.ref_dir, img_size=cfg.model.img_size,
         batch_size=cfg.train.batch_size, latent_dim=cfg.model.latent_dim,
-        crop_prob=cfg.train.randcrop_prob, seed=cfg.train.seed,
+        crop_prob=cfg.train.randcrop_prob, seed=cfg.train.seed, process_index=rank, process_count=world,
     )
     debug_fwd = None
-    print(f"Start training on {dev}...")
+    print(f"Start training on {dev} (rank {rank} of {world})...")
     try:
         for i in range(start, cfg.train.total_iters):
             batch = next(batcher)
-            metrics = step_fn(state, frozen, batch)
-            writer.write(i + 1, metrics)
-            if cfg.train.debug_every and (i + 1) % cfg.train.debug_every == 0:
+            with mesh or contextlib.nullcontext():
+                if mesh is not None:
+                    batch = shard_batch(mesh, batch, local_batch_size(cfg.train.batch_size, mesh))
+                metrics = step_fn(state, frozen, batch)
+            if writer is not None:
+                writer.write(i + 1, metrics)
+            if primary and world == 1 and cfg.train.debug_every and (i + 1) % cfg.train.debug_every == 0:
                 # The reference's 10-panel grid (solver.py:216-248).
                 from ..utils.debug import make_debug_forward, save_debug_grid
 
@@ -149,12 +177,13 @@ def run_train(cfg, use_wandb: bool = False, device="cuda"):
                     debug_fwd = make_debug_forward(cfg)
                 images, heats = debug_fwd(state.nets, frozen, batch)
                 save_debug_grid(images, heats, os.path.join(cfg.paths.debug_dir, f"Img_{i + 1}.svg"))
-            if (i + 1) % cfg.train.save_every == 0:
+            if primary and (i + 1) % cfg.train.save_every == 0:
                 save_train_state(ckpts, state)
                 ckpts.save(i + 1, "camera", frozen.camera.state_dict())
     finally:
         batcher.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state
 
 

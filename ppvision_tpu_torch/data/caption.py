@@ -254,18 +254,31 @@ def caption_batches(
     batch_size: int,
     shuffle: bool = True,
     seed: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[dict]:
     """One epoch of stacked batches in the order of a ``torch.randperm``
     from ``seed`` (or in order without ``shuffle``); drops the trailing
-    partial batch when shuffling, like the reference's training loader."""
+    partial batch when shuffling, like the reference's training loader.
+
+    Under several processes ``batch_size`` is the global batch: every
+    process walks the same order and takes its contiguous
+    ``batch_size // process_count`` block of each batch
+    (``parallel.mesh.process_slice``), so the global batches are the
+    single process's.  The trailing partial batch is then dropped too:
+    its blocks would be unequal or empty."""
+    if batch_size % process_count != 0:
+        raise ValueError(f"process count {process_count} must divide batch_size {batch_size}")
+    local = batch_size // process_count
     n = len(ds)
     if shuffle:
         order = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).numpy()
     else:
         order = np.arange(n)
-    stop = n - (n % batch_size) if shuffle else n
+    stop = n - (n % batch_size) if shuffle or process_count > 1 else n
     for lo in range(0, stop, batch_size):
-        items = [ds[int(i)] for i in order[lo : lo + batch_size]]
+        idx = order[lo : lo + batch_size][process_index * local : (process_index + 1) * local]
+        items = [ds[int(i)] for i in idx]
         batch = dict(
             images=np.stack([it[0] for it in items]),
             captions=np.stack([it[1] for it in items]),

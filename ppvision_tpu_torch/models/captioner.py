@@ -21,6 +21,11 @@ under the reference's state_dict names: ``attention.encoder_att``,
   ``topk`` runs over each image's flat (k*V) scores.
 - Dropout draws its mask from an explicit ``torch.Generator``, as Flax's
   ``nn.Dropout`` (keep with probability 1 - p, scale by 1 / (1 - p)).
+- Under a mesh (``parallel/mesh.py``) the batch is the rank's block of
+  the global one: dropout draws the global batch's mask and keeps the
+  rank's rows, so every rank's generator stays in step with the others
+  and with a single process's, and ``caption_loss`` divides by the
+  global count of valid tokens.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum, current_mesh, process_slice
 
 __all__ = ["AttentionLSTMDecoder", "DecoderOutput", "beam_search", "beam_search_batch", "caption_loss",
            "init_decoder_"]
@@ -54,7 +61,13 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> tor
     if p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
+    mesh = current_mesh()
+    if mesh is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
+    else:
+        b = x.shape[0] * mesh.world
+        mask = torch.rand((b, *x.shape[1:]), generator=generator, device=x.device, dtype=x.dtype) < keep
+        mask = mask[process_slice(b, mesh)]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -180,19 +193,27 @@ def caption_loss(out: DecoderOutput, captions: torch.Tensor, alpha_c: float = 1.
     CE averages over valid (packed) tokens only, as the reference's
     pack_padded_sequence + CrossEntropyLoss (train.py:274-286); the
     attention regularizer runs over the full zero-padded alphas, as the
-    reference does."""
+    reference does.
+
+    Under a mesh the CE and top-5 sums divide by the global count of
+    valid tokens and are scaled by the world size W, so that the mean
+    over the ranks of each (``mean_metrics``), and of its gradient
+    (``all_reduce_grads``), is the global batch's value."""
     preds = out.predictions
     targets = captions[:, 1:].to(preds.device).long()  # (B, T)
     t = preds.shape[1]
     mask = (torch.arange(t, device=preds.device)[None, :] < out.decode_lengths[:, None]).to(preds.dtype)
     logp = torch.log_softmax(preds, dim=-1)
     tok_logp = logp.gather(-1, targets[..., None])[..., 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    mesh = current_mesh()
+    denom = torch.clamp_min(all_reduce_sum(mask.sum(), mesh), 1.0)
     ce = -(tok_logp * mask).sum() / denom
     dsr = torch.mean((1.0 - out.alphas.sum(dim=1)) ** 2)
     top5 = preds.topk(5, dim=-1).indices  # (B, T, 5)
     hit = (top5 == targets[..., None]).any(dim=-1).to(torch.float32)
     acc5 = 100.0 * (hit * mask).sum() / denom
+    if mesh is not None:
+        ce, acc5 = ce * mesh.world, acc5 * mesh.world
     return ce, dsr, acc5
 
 

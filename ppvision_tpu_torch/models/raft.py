@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.corr import alternate_corr_lookup
 from ..ops.image import avg_pool_2x, resize_bilinear
+from ..parallel.mesh import current_mesh
 from ..utils.device import resolve_device
 from .stargan import init_params_
 
@@ -357,9 +358,16 @@ def raft_flow_loss(raft: RAFT, frames1: torch.Tensor, frames2: torch.Tensor, ite
     between frame pairs (reference loss_RAFT.__call__, utils.py:460-462),
     batched.  The gradient reaches the frames; RAFT's own weights stay
     frozen (``build_raft``), and each refinement step detaches its
-    coordinates as the reference does."""
+    coordinates as the reference does.
+
+    Under a mesh the sum runs over the global batch: the rank's sum is
+    scaled by the world size W, so that the mean over the ranks of the
+    loss (``mean_metrics``) and of its gradient (``all_reduce_grads``)
+    is the global batch's sum."""
     flow = raft(frames1, frames2, iters=iters)
-    return torch.sum(torch.abs(torch.mean(flow, dim=(1, 2, 3))))
+    loss = torch.sum(torch.abs(torch.mean(flow, dim=(1, 2, 3))))
+    mesh = current_mesh()
+    return loss if mesh is None else loss * mesh.world
 
 
 def build_raft(seed: int = 0, device="cuda", **cfg) -> RAFT:

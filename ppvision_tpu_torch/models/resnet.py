@@ -21,6 +21,16 @@ train-mode forward leaves its batch statistics pending on each BN;
 :func:`commit_batch_stats` folds them into the running buffers once, so
 a forward recomputed under ``torch.utils.checkpoint`` does not update
 them twice.
+
+Under a mesh of more than one rank a train-mode BN normalizes by the
+global batch's statistics, as a Flax BN does over a batch-sharded
+array, and the pending statistics are the global ones
+(:class:`_SyncedBatchNorm`): each rank's per-channel mean and biased
+variance, in f32 or wider, are gathered and combined, ``F.batch_norm``
+normalizes with them in its inference form, and the backward is one
+fused reduction, one ``all_reduce_sum`` of the per-channel sums of dy
+and dy * x_hat, and one elementwise pass.  (``torch.nn.SyncBatchNorm``
+and the fused kernels behind it refuse CPU tensors.)
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_gather, all_reduce_sum, current_mesh
 
 __all__ = ["BatchNorm", "Bottleneck", "CaptionEncoder", "ResNetBackbone", "adaptive_avg_pool",
            "commit_batch_stats", "init_encoder_"]
@@ -81,6 +93,11 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        mesh = current_mesh()
+        if mesh is not None and mesh.world > 1:
+            y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias, self.eps, mesh)
+            self.pending = (mean.to(self.running_mean.dtype), var.to(self.running_var.dtype))
+            return y
         # momentum 1 writes the batch mean and unbiased variance into the
         # fresh buffers, leaving the running ones to commit_batch_stats.
         mean, var = torch.zeros_like(self.running_mean), torch.ones_like(self.running_var)
@@ -88,6 +105,43 @@ class BatchNorm(nn.BatchNorm2d):
         n = x.numel() // x.shape[1]
         self.pending = (mean, var * ((n - 1) / n))
         return y
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BN of a rank's block over the mesh's global batch; the
+    ranks' blocks are of one size.  Returns the output and the global
+    mean and biased variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)), dim=(0, 2, 3), correction=0)
+        # The global variance: the mean of the ranks' variances plus the
+        # variance of their means (exact for equal blocks).
+        stats = all_gather(torch.stack([mean, var])[None], mesh=mesh)
+        mean = stats[:, 0].mean(0)
+        var = stats[:, 1].mean(0) + (stats[:, 0] - mean).square().mean(0)
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.eps, ctx.mesh, ctx.n = eps, mesh, x.numel() // x.shape[1] * mesh.world
+        ctx.mark_non_differentiable(mean, var)
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, var = ctx.saved_tensors
+        # The local sums of dy * x_hat and dy, the weight's and the bias's
+        # gradients; their global means give
+        # dx = w / sigma * (dy - mean(dy) - x_hat * mean(dy * x_hat)),
+        # affine in dy and x channel by channel.
+        invstd = torch.rsqrt(var + ctx.eps)
+        _, gw, gb = torch.ops.aten.native_batch_norm_backward(dy, x, weight, mean, var, mean, invstd, True, ctx.eps,
+                                                              [False, True, True])
+        g_mean, gx_mean = all_reduce_sum(torch.stack([gb, gw]).to(mean.dtype), ctx.mesh) / ctx.n
+        a = weight.to(mean.dtype) * invstd
+        b = -a * invstd * gx_mean
+        c = -a * g_mean - b * mean
+        dx = torch.empty_like(x, dtype=mean.dtype)  # x's memory format
+        torch.addcmul(c[:, None, None], dy, a[:, None, None], out=dx).addcmul_(x, b[:, None, None])
+        return dx.to(x.dtype), gw.to(weight.dtype), gb.to(weight.dtype), None, None
 
 
 def commit_batch_stats(module: nn.Module) -> None:

@@ -42,6 +42,7 @@ from ..ops.image import avg_pool_2x, resize_bilinear, upsample_nearest_2x
 from ..ops.instats import instance_moments
 from ..ops.quant import int8_conv, int8_conv3x3_nearest_up2x, quantize_up2x_weight, quantize_weight_per_oc
 from ..ops.winograd import conv3x3, conv3x3_supported, pack_conv3x3_weight
+from ..parallel.mesh import all_reduce_mean
 
 __all__ = [
     "Conv",
@@ -354,8 +355,9 @@ class Generator(nn.Module):
             if masks is not None and x.shape[-2] in (32, 64, 128):
                 # The reference caches x - x.mean() over the whole batch
                 # (model.py:175): one scalar, the mean of the per-(b, c)
-                # spatial means.
-                m = _moments_nchw(x)[0].mean()
+                # spatial means; under a mesh, over the global batch
+                # (the ranks' local batches are equal).
+                m = all_reduce_mean(_moments_nchw(x)[0].mean())
                 cache.append((x.shape[-2], x, m))
             x = self._modules["encode"][i](x)
         for j in range(2):

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.image import resize_nearest
+from ..parallel.mesh import all_reduce_max
 from .fourier import fft_conv2d_linear
 from .zernike import zernike_basis, zernike_volume
 
@@ -305,6 +306,7 @@ def lens_apply(
         psf_out = psf * consts.mask_keep
 
     sensor = fft_conv2d_linear(img.to(torch.promote_types(img.dtype, psf_out.dtype)), psf_out)
-    # One max over the whole batch, as the reference (Lens.py:312).
-    sensor = sensor / torch.amax(sensor)
+    # One max over the whole batch, as the reference (Lens.py:312): under
+    # a mesh, over the global batch.
+    sensor = sensor / all_reduce_max(torch.amax(sensor))
     return LensResult(sensor=sensor, psf=psf_out, coeffs=coeffs, psf_loss=psf_loss)

@@ -1,4 +1,4 @@
-"""Batching inference server for the de-id pipeline (single device).
+"""Batching inference server for the de-id pipeline.
 
 Port of ``ppvision_tpu/serve.py``: callers submit source images (any
 count); the server packs them into fixed-shape batches, keeps ``depth``
@@ -13,9 +13,17 @@ batches in flight, and yields per-request results in submission order.
   input goes up through pinned memory without a sync, and the one sync
   is the ``.cpu()`` of batch t - depth when batch t is dispatched.
 - **Styles fixed per server**, as in the eval workload.
-
-Multi-device serving (the JAX server's ``mesh``) joins with the
-multi-GPU slice.
+- **Sharded serving** (``mesh``, one process a GPU): every rank builds
+  the server and calls ``warmup`` and ``serve`` together.  Rank 0 is
+  the front door: it reads the requests and makes every batching
+  decision, the flush deadline included; for each dispatch it
+  broadcasts a header (the valid count, a stop flag) and the padded
+  batch; each rank runs its ``process_slice`` of the batch (the skip
+  mean is the global batch's, as under the JAX server's GSPMD) and the
+  outputs come back to every rank by ``all_gather``.  Rank 0 yields the
+  results; the other ranks loop inside ``serve`` until the stop header
+  and yield nothing.  Broadcast and all_gather, not scatter and gather:
+  gloo has the first two for CUDA tensors and not the others.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from .deid import DeIdBundle, deid_multi_style
+from .parallel.mesh import Mesh, all_gather, broadcast, process_slice, replicate
 
 __all__ = ["DeIdServer"]
 
@@ -45,21 +54,35 @@ class DeIdServer:
         y_ref: np.ndarray,
         batch_size: int = 128,
         depth: int = 4,
+        mesh: Mesh | None = None,
         out_space: str = "float32",
     ):
-        """``out_space``: "float32" yields raw pipeline outputs; "uint8"
+        """``mesh``: shard each batch over the mesh's ranks (module
+        docstring); ``batch_size`` must divide over them, and the bundle
+        lie on the mesh's device.  Every rank constructs the server: the
+        bundle's weights and the styles are replicated from rank 0.
+
+        ``out_space``: "float32" yields raw pipeline outputs; "uint8"
         converts to saved-image space on the device with the exact
         ``clip(x*255, 0, 255)`` math (4x fewer bytes to the host)."""
         if batch_size < 1 or depth < 1:
             raise ValueError("batch_size and depth must be >= 1")
         if out_space not in ("float32", "uint8"):
             raise ValueError(f"out_space must be float32|uint8, got {out_space}")
+        if mesh is not None and batch_size % mesh.world != 0:
+            raise ValueError(f"batch_size {batch_size} must divide over the mesh's data axis ({mesh.world})")
+        if mesh is not None and bundle.device.type != mesh.device.type:
+            raise ValueError(f"the bundle is on {bundle.device}, the mesh on {mesh.device}")
         self._bundle = bundle
         self._batch = batch_size
         self._depth = depth
+        self._mesh = mesh
         self._out_space = out_space
         self._x_ref = torch.as_tensor(np.asarray(x_ref, np.float32)).to(bundle.device)
         self._y_ref = torch.as_tensor(np.asarray(y_ref, np.int64)).to(bundle.device)
+        if mesh is not None:
+            replicate(mesh, (bundle.camera, bundle.fan, bundle.generator, bundle.mapping_network,
+                             bundle.style_encoder, self._x_ref, self._y_ref))
         self._latencies: list[float] = []
         self._batches_dispatched = 0
         self._completed = 0
@@ -94,22 +117,66 @@ class DeIdServer:
 
     def warmup(self) -> None:
         """Run one batch ahead of the first request (builds the kernels
-        and fills the caches).  Mid-gray, not zeros: see the module doc."""
+        and fills the caches); under a mesh every rank calls it.
+        Mid-gray, not zeros: see the module doc."""
         n = self._bundle.cfg.model.img_size
         dummy = np.full((self._batch, n, n, 3), 0.5, np.float32)
-        self._dispatch(dummy).cpu()
+        self._run(self._upload(dummy)).cpu()
 
-    def _dispatch(self, batch_np: np.ndarray) -> torch.Tensor:
+    def _upload(self, batch_np: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch_np)
         if self._bundle.device.type == "cuda":
             x = x.pin_memory().to(self._bundle.device, non_blocking=True)
+        return x
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        """The pipeline on the whole batch ``x``: outside a mesh as it is;
+        under one, this rank's block of it, gathered from every rank."""
+        mesh = self._mesh
+        if mesh is None:
+            return self._pipeline(x)
+        with mesh:
+            return all_gather(self._pipeline(x[process_slice(self._batch, mesh)]), dim=1, mesh=mesh)
+
+    def _pipeline(self, x: torch.Tensor) -> torch.Tensor:
         out = deid_multi_style(self._bundle, x, self._x_ref, self._y_ref)
         if self._out_space == "uint8":
             out = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
         return out
 
+    def _dispatch(self, batch_np: np.ndarray, valid: int) -> torch.Tensor:
+        x = self._upload(batch_np)
+        if self._mesh is not None:
+            self._exchange(x, valid)
+        return self._run(x)
+
+    def _exchange(self, x: torch.Tensor | None, valid: int = 0, stop: bool = False) -> tuple[int, bool]:
+        """The header (valid count, stop flag) and, unless it says stop,
+        the padded batch ``x``, broadcast from rank 0; returns the header.
+        Rank 0 passes its values; the other ranks receive into theirs."""
+        mesh = self._mesh
+        header = broadcast(torch.tensor([valid, stop], dtype=torch.int64, device=mesh.device), mesh)
+        if mesh.rank != 0:  # rank 0 knows its header and does not wait for it
+            valid, stop = header.tolist()
+        if not stop:
+            broadcast(x, mesh)
+        return valid, bool(stop)
+
+    def _follow(self) -> None:
+        """A rank other than 0: run each batch rank 0 announces, until it
+        says stop."""
+        n = self._bundle.cfg.model.img_size
+        while True:
+            x = torch.empty((self._batch, n, n, 3), dtype=torch.float32, device=self._bundle.device)
+            valid, stop = self._exchange(x)
+            if stop:
+                return
+            self._run(x)
+            self._batches_dispatched += 1
+            self._completed += valid
+
     def serve(
-        self, images: Iterable[np.ndarray], max_wait_s: float | None = None
+        self, images: Iterable[np.ndarray] | None, max_wait_s: float | None = None
     ) -> Iterator[np.ndarray]:
         """Yield one (R, H, W, 3) output per input image, in order.
 
@@ -117,7 +184,22 @@ class DeIdServer:
         pending partial batch is padded and dispatched once the oldest
         pending request has waited ``max_wait_s`` seconds (the input
         iterable is then pulled on a background thread so a blocked
-        producer cannot stall the deadline)."""
+        producer cannot stall the deadline).
+
+        Under a mesh every rank calls it: rank 0's ``images`` are served,
+        the other ranks' are not read, and those ranks yield nothing and
+        return when rank 0 is done."""
+        mesh = self._mesh
+        if mesh is not None and mesh.rank != 0:
+            self._follow()
+            return
+        try:
+            yield from self._lead(images, max_wait_s)
+        finally:
+            if mesh is not None:
+                self._exchange(None, stop=True)
+
+    def _lead(self, images: Iterable[np.ndarray], max_wait_s: float | None) -> Iterator[np.ndarray]:
         n = self._bundle.cfg.model.img_size
         # (result, valid count, arrival timestamps of the valid requests)
         inflight: list[tuple[torch.Tensor, int, list[float]]] = []
@@ -148,7 +230,7 @@ class DeIdServer:
         def dispatch(pending: list[np.ndarray], arrivals: list[float]) -> None:
             k = self._batch - len(pending)
             batch = np.stack(pending + [pending[-1]] * k)
-            inflight.append((self._dispatch(batch), len(pending), arrivals))
+            inflight.append((self._dispatch(batch, len(pending)), len(pending), arrivals))
             self._batches_dispatched += 1
             note_depth(0)
 

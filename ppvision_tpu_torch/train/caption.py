@@ -28,6 +28,13 @@ optimizer run in ``torch.profiler.record_function`` ranges
 (``caption.camera``, ``caption.encoder``, ``caption.decoder``,
 ``caption.loss``, ``caption.optimizer``); the backward's kernels run on
 autograd's device thread, under its ``evaluate_function`` names.
+
+Under a mesh (``parallel/mesh.py``; call the step inside ``with
+mesh:``) each rank takes its block of the global batch and the same
+generator state: the gradients are averaged over the ranks before the
+clamp, as JAX clips the global gradient, the BNs take the global
+batch's statistics, the lens the global max, the loss the global token
+count, and the metrics come back as the global ones.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ..metrics.psnr_ssim import ssim
 from ..models.captioner import AttentionLSTMDecoder, caption_loss, init_decoder_
 from ..models.resnet import CaptionEncoder, commit_batch_stats, init_encoder_
 from ..optics.lens import LensConstants, LensSpec, OpticsZernike, lens_apply
+from ..parallel.mesh import all_reduce_grads, mean_metrics
 from ..utils.device import resolve_device
 
 __all__ = ["CaptionTrainState", "encoder_trainable", "init_caption", "make_caption_train_step",
@@ -158,7 +166,7 @@ def make_caption_train_step(
         enc_named = list(enc.named_parameters())
         enc_p = [p for n, p in enc_named if encoder_trainable(n)]
         dec_p = list(dec.parameters())
-        grads = torch.autograd.grad(loss, cam_p + enc_p + dec_p)
+        grads = all_reduce_grads(torch.autograd.grad(loss, cam_p + enc_p + dec_p))
         g_cam, g_enc, g_dec = grads[:1], iter(grads[1 : 1 + len(enc_p)]), grads[1 + len(enc_p) :]
 
         with record_function("caption.optimizer"):
@@ -172,8 +180,8 @@ def make_caption_train_step(
             _apply(state.opt_decoder, dec_p, [g.clamp(-clip, clip) for g in g_dec])
             commit_batch_stats(enc)
         state.step += 1
-        return {k: v.detach() for k, v in dict(loss=loss, ce=ce, dsr=dsr, top5=acc5, ssim=ssim_val,
-                                                 psf_loss=res.psf_loss).items()}
+        return mean_metrics({k: v.detach() for k, v in dict(loss=loss, ce=ce, dsr=dsr, top5=acc5, ssim=ssim_val,
+                                                              psf_loss=res.psf_loss).items()})
 
     return train_step
 

@@ -20,6 +20,13 @@ With ``TrainConfig.remat`` G and D run under
 ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps them
 in ``jax.checkpoint``.
 
+Under a mesh (``parallel/mesh.py``; call the step inside ``with
+mesh:``) each rank takes its block of the global batch: every sub-step's
+gradients are averaged over the ranks before its update, the
+generator's skip mean is the global batch's, and the metrics come back
+as the global ones, so the updates, the EMA and Adam's moments stay the
+same on every rank.
+
 Each sub-step takes its gradients with ``torch.autograd.grad`` over the
 nets it updates, and only those nets' parameters take gradients while it
 runs, so no step leaves ``.grad`` on another net and no kernel computes
@@ -49,6 +56,7 @@ from ..models.fan import FAN, get_heatmap
 from ..models.stargan import build_gan_models, init_params_
 from ..ops.image import resize_bilinear
 from ..optics.camera import Camera, CameraConstants, camera_apply
+from ..parallel.mesh import all_reduce_grads, mean_metrics
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -151,10 +159,11 @@ def _train_only(nets: dict[str, nn.Module], names) -> list[nn.Parameter]:
 
 
 def _grads(loss: torch.Tensor, params: list[nn.Parameter]) -> list[torch.Tensor]:
-    """d loss / d params; a parameter the loss does not reach gets zeros,
-    as a JAX gradient does (Adam's weight decay still moves it)."""
+    """d loss / d params, averaged over the ranks under a mesh; a
+    parameter the loss does not reach gets zeros, as a JAX gradient does
+    (Adam's weight decay still moves it)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
 
 def _apply(state: GANTrainState, names, grads: list[torch.Tensor]) -> None:
@@ -325,6 +334,6 @@ def make_train_step(
                     e.copy_(p + beta * (e - p))
         metrics["G/lambda_ds"] = torch.tensor(lam_ds, dtype=torch.float64)
         state.step += 1
-        return metrics
+        return mean_metrics(metrics)
 
     return train_step

@@ -32,7 +32,8 @@ for name in names:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "ppvision_tpu"))
 caption = {"ppvision_tpu_torch." + m for m in (
     "optics.lens", "models.resnet", "models.captioner", "train.caption", "data.caption", "metrics.text",
-    "metrics.eval_caption", "metrics.val_caption", "cli.caption", "cli.caption_image")}
+    "metrics.eval_caption", "metrics.val_caption", "cli.caption", "cli.caption_image",
+    "parallel", "parallel.mesh", "parallel.dryrun")}
 assert caption <= set(names), sorted(caption - set(names))
 print(len(names), bad)
 assert not bad, bad
@@ -120,6 +121,20 @@ def test_entry_points_refuse_a_missing_gpu():
             caption.main(argv)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         caption_image.main(["--img", "none.png"])
+    from ppvision_tpu_torch.parallel import dryrun
+    from ppvision_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["2"])
+    # The sharded server: its mesh's device is the card unless asked.
+    bundle = build_deid(0, torch_cfg(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeIdServer(bundle, np.zeros((1, 64, 64, 3), np.float32), np.zeros(1), batch_size=2, mesh=make_mesh())
+    assert not torch.distributed.is_initialized()
 
 
 def test_caption_weights_round_trip_through_reference_names():
