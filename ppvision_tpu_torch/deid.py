@@ -11,7 +11,11 @@ Port of ``ppvision_tpu/deid.py`` (the reference's ``--mode sample``,
 
 Entry points take and return NHWC tensors like the JAX package's, run
 without autograd, and run on the bundle's device (CUDA unless
-``build_deid(device="cpu")``).
+``build_deid(device="cpu")``).  Each stage runs in a
+``torch.profiler.record_function`` range: ``deid.camera``, ``deid.fan``,
+``deid.style`` (the style encoder or the mapping network),
+``deid.encode``, ``deid.decode`` (one a style, the same name for each)
+and ``deid.cast``; none nests another.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from .config import FaceDeIdConfig
 from .models.fan import FAN, get_heatmap
@@ -107,8 +112,10 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
 def _privacy_front(bundle: DeIdBundle, x_src: torch.Tensor):
     """Sensor image (NHWC) and the two privacy masks (NCHW)."""
     check_image_batch(x_src, "x_src", size=bundle.cfg.model.img_size)
-    x_priv, _ = camera_apply(bundle.camera, bundle.camera_consts, x_src.to(bundle.device))
-    masks = get_heatmap(bundle.fan, x_priv, privacy=True)
+    with record_function("deid.camera"):
+        x_priv, _ = camera_apply(bundle.camera, bundle.camera_consts, x_src.to(bundle.device))
+    with record_function("deid.fan"):
+        masks = get_heatmap(bundle.fan, x_priv, privacy=True)
     return x_priv, tuple(_nchw(m) for m in masks)
 
 
@@ -119,7 +126,8 @@ def deid_from_reference(bundle: DeIdBundle, x_src, x_ref, y_ref) -> torch.Tensor
     check_image_batch(x_ref, "x_ref", size=bundle.cfg.model.img_size)
     check_labels(y_ref, "y_ref", batch=x_ref.shape[0])
     x_priv, masks = _privacy_front(bundle, x_src)
-    s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
+    with record_function("deid.style"):
+        s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
     return _nhwc(bundle.generator(_nchw(x_priv), s_ref, masks))
 
 
@@ -128,7 +136,8 @@ def deid_from_latent(bundle: DeIdBundle, x_src, z, y_trg) -> torch.Tensor:
     """Anonymize ``x_src`` with styles mapped from latent codes ``z``."""
     check_labels(y_trg, "y_trg", batch=x_src.shape[0])
     x_priv, masks = _privacy_front(bundle, x_src)
-    s = bundle.mapping_network(z.to(bundle.device), y_trg.to(bundle.device))
+    with record_function("deid.style"):
+        s = bundle.mapping_network(z.to(bundle.device), y_trg.to(bundle.device))
     return _nhwc(bundle.generator(_nchw(x_priv), s, masks))
 
 
@@ -143,17 +152,21 @@ def deid_from_styles(bundle: DeIdBundle, x_src, styles: torch.Tensor) -> torch.T
     (deid.py:173-188 of the JAX package)."""
     x_priv, masks = _privacy_front(bundle, x_src)
     gen = bundle.generator
-    z, hps = gen.encode(_nchw(x_priv), masks)
+    with record_function("deid.encode"):
+        z, hps = gen.encode(_nchw(x_priv), masks)
     b, h, w, _ = x_src.shape
     fakes = torch.empty((styles.shape[0], b, h, w, 3), dtype=bundle.compute_dtype, device=bundle.device)
     for i, sb in enumerate(styles):
-        fakes[i] = _nhwc(gen.decode(z, sb, hps))
-    return fakes.float()
+        with record_function("deid.decode"):
+            fakes[i] = _nhwc(gen.decode(z, sb, hps))
+    with record_function("deid.cast"):
+        return fakes.float()
 
 
 @torch.no_grad()
 def deid_multi_style(bundle: DeIdBundle, x_src, x_ref, y_ref) -> torch.Tensor:
     """All (reference style, source) anonymizations: (R, B, H, W, 3) f32,
     one style per reference face."""
-    s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
+    with record_function("deid.style"):
+        s_ref = bundle.style_encoder(_nchw(x_ref.to(bundle.device)), y_ref.to(bundle.device))
     return deid_from_styles(bundle, x_src, s_ref[:, None].expand(-1, x_src.shape[0], -1))

@@ -13,6 +13,17 @@ batches in flight, and yields per-request results in submission order.
   input goes up through pinned memory without a sync, and the one sync
   is the ``.cpu()`` of batch t - depth when batch t is dispatched.
 - **Styles fixed per server**, as in the eval workload.
+- **Observability**: each batch's host path runs in
+  ``torch.profiler.record_function`` ranges whose ``args`` is the
+  batch's dispatch number: ``serve.assemble`` (check, pad, stack),
+  ``serve.upload`` (pinned copy up; under a mesh, the broadcast),
+  ``serve.launch`` (the pipeline, whose ``deid.*`` and ``parallel.*``
+  ranges nest inside it), ``serve.quantize`` (the uint8 conversion) and
+  ``serve.drain`` (the copy to the host and its sync).  The profilers
+  of torch 2.11 and 2.13 keep the args string in no event; there the
+  k-th range of a name on the serving thread is the k-th batch.  ``stats()``
+  sums the host seconds of the first three and of the drain, and each
+  request's wait from arrival to dispatch, with no profiler.
 - **Sharded serving** (``mesh``, one process a GPU): every rank builds
   the server and calls ``warmup`` and ``serve`` together.  Rank 0 is
   the front door: it reads the requests and makes every batching
@@ -28,6 +39,8 @@ batches in flight, and yields per-request results in submission order.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import queue
 import threading
 import time
@@ -35,11 +48,51 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .deid import DeIdBundle, deid_multi_style
 from .parallel.mesh import Mesh, all_gather, broadcast, process_slice, replicate
 
 __all__ = ["DeIdServer"]
+
+# Host seconds ``stats()`` sums: the first four over batches, the last
+# over requests.
+_HOST_COUNTERS = ("assemble_s", "upload_s", "launch_s", "drain_wait_s", "queue_wait_s")
+
+
+class _LatencyHistogram:
+    """Request latencies in fixed log buckets, each ``RATIO`` times the
+    last from ``LO`` seconds up (those below ``LO`` count in the first,
+    those past the last bucket in the last), and the exact max: O(1)
+    memory and time a request, O(buckets) a quantile.  A quantile is its
+    bucket's geometric middle, capped at the max, so it lies within a
+    factor sqrt(RATIO) of the true one and never above the max."""
+
+    LO = 1e-6
+    RATIO = 1.05
+    BUCKETS = 520  # up to LO * RATIO**520, over a day
+
+    def __init__(self):
+        self.counts = [0] * self.BUCKETS
+        self.n = 0
+        self.max: float | None = None
+
+    def add(self, seconds: float) -> None:
+        i = int(math.log(max(seconds, self.LO) / self.LO) / math.log(self.RATIO))
+        self.counts[min(i, self.BUCKETS - 1)] += 1
+        self.n += 1
+        self.max = seconds if self.max is None else max(self.max, seconds)
+
+    def quantile(self, q: float) -> float | None:
+        """The latency of rank ceil(q * n) (1-based), from its bucket."""
+        if not self.n:
+            return None
+        rank, seen = max(1, math.ceil(q * self.n)), 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= rank:
+                return min(self.LO * self.RATIO ** (i + 0.5), self.max)
+        return self.max
 
 
 class DeIdServer:
@@ -83,7 +136,8 @@ class DeIdServer:
         if mesh is not None:
             replicate(mesh, (bundle.camera, bundle.fan, bundle.generator, bundle.mapping_network,
                              bundle.style_encoder, self._x_ref, self._y_ref))
-        self._latencies: list[float] = []
+        self._latency = _LatencyHistogram()
+        self._host_s = dict.fromkeys(_HOST_COUNTERS, 0.0)
         self._batches_dispatched = 0
         self._completed = 0
         self._pending_gauge = 0
@@ -92,25 +146,31 @@ class DeIdServer:
 
     def stats(self) -> dict:
         """Request count, dispatched-batch count, per-request latency
-        quantiles (submission -> result on host, seconds), and queue
-        gauges: ``pending`` (waiting for a batch), ``inflight_batches``
+        quantiles (submission -> result on host, seconds, from a log
+        histogram within 2.5%; the max exact), queue gauges:
+        ``pending`` (waiting for a batch), ``inflight_batches``
         (dispatched, not drained), ``max_queue_depth`` (max pending +
-        in-flight requests observed)."""
-        lat = np.asarray(self._latencies, np.float64)
-        q = lambda p: float(np.quantile(lat, p)) if lat.size else None  # noqa: E731
+        in-flight requests observed); and host seconds summed over
+        batches: ``assemble_s`` (check, pad, stack), ``upload_s`` (pinned
+        copy up, and under a mesh the broadcast of the batch), ``launch_s``
+        (enqueueing the pipeline), ``drain_wait_s`` (blocked in the
+        drain's copy to the host), and over requests ``queue_wait_s``
+        (arrival to dispatch)."""
         return dict(
             completed=self._completed,
             batches_dispatched=self._batches_dispatched,
-            latency_p50_s=q(0.50),
-            latency_p99_s=q(0.99),
-            latency_max_s=float(lat.max()) if lat.size else None,
+            latency_p50_s=self._latency.quantile(0.50),
+            latency_p99_s=self._latency.quantile(0.99),
+            latency_max_s=self._latency.max,
             pending=self._pending_gauge,
             inflight_batches=self._inflight_gauge,
             max_queue_depth=self._max_queue_depth,
+            **self._host_s,
         )
 
     def reset_stats(self) -> None:
-        self._latencies = []
+        self._latency = _LatencyHistogram()
+        self._host_s = dict.fromkeys(_HOST_COUNTERS, 0.0)
         self._batches_dispatched = 0
         self._completed = 0
         self._max_queue_depth = 0
@@ -121,7 +181,16 @@ class DeIdServer:
         Mid-gray, not zeros: see the module doc."""
         n = self._bundle.cfg.model.img_size
         dummy = np.full((self._batch, n, n, 3), 0.5, np.float32)
-        self._run(self._upload(dummy)).cpu()
+        self._run(self._upload(dummy), -1).cpu()  # dispatch number -1: not a dispatch
+
+    @contextlib.contextmanager
+    def _span(self, name: str, number: int, counter: str):
+        """A profiler range named ``name`` with the batch's dispatch number
+        as its args; its host seconds are added to ``counter``."""
+        t = time.perf_counter()
+        with record_function(name, str(number)):
+            yield
+        self._host_s[counter] += time.perf_counter() - t
 
     def _upload(self, batch_np: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch_np)
@@ -129,26 +198,30 @@ class DeIdServer:
             x = x.pin_memory().to(self._bundle.device, non_blocking=True)
         return x
 
-    def _run(self, x: torch.Tensor) -> torch.Tensor:
-        """The pipeline on the whole batch ``x``: outside a mesh as it is;
-        under one, this rank's block of it, gathered from every rank."""
+    def _run(self, x: torch.Tensor, number: int) -> torch.Tensor:
+        """The pipeline on the whole batch ``x`` (dispatch ``number``):
+        outside a mesh as it is; under one, this rank's block of it,
+        gathered from every rank."""
         mesh = self._mesh
         if mesh is None:
-            return self._pipeline(x)
+            return self._pipeline(x, number)
         with mesh:
-            return all_gather(self._pipeline(x[process_slice(self._batch, mesh)]), dim=1, mesh=mesh)
+            return all_gather(self._pipeline(x[process_slice(self._batch, mesh)], number), dim=1, mesh=mesh)
 
-    def _pipeline(self, x: torch.Tensor) -> torch.Tensor:
+    def _pipeline(self, x: torch.Tensor, number: int) -> torch.Tensor:
         out = deid_multi_style(self._bundle, x, self._x_ref, self._y_ref)
         if self._out_space == "uint8":
-            out = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
+            with record_function("serve.quantize", str(number)):
+                out = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
         return out
 
-    def _dispatch(self, batch_np: np.ndarray, valid: int) -> torch.Tensor:
-        x = self._upload(batch_np)
-        if self._mesh is not None:
-            self._exchange(x, valid)
-        return self._run(x)
+    def _dispatch(self, batch_np: np.ndarray, valid: int, number: int) -> torch.Tensor:
+        with self._span("serve.upload", number, "upload_s"):
+            x = self._upload(batch_np)
+            if self._mesh is not None:
+                self._exchange(x, valid)
+        with self._span("serve.launch", number, "launch_s"):
+            return self._run(x, number)
 
     def _exchange(self, x: torch.Tensor | None, valid: int = 0, stop: bool = False) -> tuple[int, bool]:
         """The header (valid count, stop flag) and, unless it says stop,
@@ -167,11 +240,14 @@ class DeIdServer:
         says stop."""
         n = self._bundle.cfg.model.img_size
         while True:
+            number = self._batches_dispatched
             x = torch.empty((self._batch, n, n, 3), dtype=torch.float32, device=self._bundle.device)
-            valid, stop = self._exchange(x)
+            with self._span("serve.upload", number, "upload_s"):  # waits for rank 0's header too
+                valid, stop = self._exchange(x)
             if stop:
                 return
-            self._run(x)
+            with self._span("serve.launch", number, "launch_s"):
+                self._run(x, number)
             self._batches_dispatched += 1
             self._completed += valid
 
@@ -201,8 +277,8 @@ class DeIdServer:
 
     def _lead(self, images: Iterable[np.ndarray], max_wait_s: float | None) -> Iterator[np.ndarray]:
         n = self._bundle.cfg.model.img_size
-        # (result, valid count, arrival timestamps of the valid requests)
-        inflight: list[tuple[torch.Tensor, int, list[float]]] = []
+        # (result, valid count, arrival timestamps of the valid requests, dispatch number)
+        inflight: list[tuple[torch.Tensor, int, list[float], int]] = []
 
         def note_depth(n_pending: int) -> None:
             self._pending_gauge = n_pending
@@ -212,10 +288,12 @@ class DeIdServer:
             )
 
         def drain(entry):
-            fakes, valid, arrivals = entry
-            host = fakes.cpu().numpy()  # (R, B, H, W, 3): the only sync point
-            done = time.monotonic()
-            self._latencies.extend(done - t for t in arrivals)
+            fakes, valid, arrivals, number = entry
+            with self._span("serve.drain", number, "drain_wait_s"):
+                host = fakes.cpu().numpy()  # (R, B, H, W, 3): the only sync point
+            done = time.perf_counter()
+            for t in arrivals:
+                self._latency.add(done - t)
             self._completed += valid
             self._inflight_gauge = len(inflight)
             for i in range(valid):
@@ -227,19 +305,22 @@ class DeIdServer:
                 raise ValueError(f"expected ({n}, {n}, 3) image, got {img.shape}")
             return img
 
-        def dispatch(pending: list[np.ndarray], arrivals: list[float]) -> None:
-            k = self._batch - len(pending)
-            batch = np.stack(pending + [pending[-1]] * k)
-            inflight.append((self._dispatch(batch, len(pending)), len(pending), arrivals))
+        def dispatch(pending: list, arrivals: list[float]) -> None:
+            number = self._batches_dispatched
+            self._host_s["queue_wait_s"] += len(arrivals) * time.perf_counter() - sum(arrivals)
+            with self._span("serve.assemble", number, "assemble_s"):
+                imgs = [check(img) for img in pending]
+                batch = np.stack(imgs + [imgs[-1]] * (self._batch - len(imgs)))
+            inflight.append((self._dispatch(batch, len(pending), number), len(pending), arrivals, number))
             self._batches_dispatched += 1
             note_depth(0)
 
-        pending: list[np.ndarray] = []
+        pending: list = []
         arrivals: list[float] = []
         if max_wait_s is None:
             for img in images:
-                pending.append(check(img))
-                arrivals.append(time.monotonic())
+                pending.append(img)
+                arrivals.append(time.perf_counter())
                 note_depth(len(pending))
                 if len(pending) == self._batch:
                     dispatch(pending, arrivals)
@@ -281,8 +362,8 @@ class DeIdServer:
                         raise errs[0]
                     done = True
                     continue
-                pending.append(check(item))
-                arrivals.append(time.monotonic())
+                pending.append(item)
+                arrivals.append(time.perf_counter())
                 note_depth(len(pending))
                 if oldest is None:
                     oldest = time.monotonic()

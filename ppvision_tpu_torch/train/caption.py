@@ -26,8 +26,10 @@ statistics from the step's forward, as the JAX step keeps
 ``torch.utils.checkpoint`` (non-reentrant).  The forward's parts and the
 optimizer run in ``torch.profiler.record_function`` ranges
 (``caption.camera``, ``caption.encoder``, ``caption.decoder``,
-``caption.loss``, ``caption.optimizer``); the backward's kernels run on
-autograd's device thread, under its ``evaluate_function`` names.
+``caption.loss``, ``caption.optimizer``), and the backward with its
+gradient all-reduce in ``caption.backward`` on the calling thread; the
+backward's kernels run on autograd's device thread, under its
+``evaluate_function`` names.
 
 Under a mesh (``parallel/mesh.py``; call the step inside ``with
 mesh:``) each rank takes its block of the global batch and the same
@@ -166,7 +168,8 @@ def make_caption_train_step(
         enc_named = list(enc.named_parameters())
         enc_p = [p for n, p in enc_named if encoder_trainable(n)]
         dec_p = list(dec.parameters())
-        grads = all_reduce_grads(torch.autograd.grad(loss, cam_p + enc_p + dec_p))
+        with record_function("caption.backward"):
+            grads = all_reduce_grads(torch.autograd.grad(loss, cam_p + enc_p + dec_p))
         g_cam, g_enc, g_dec = grads[:1], iter(grads[1 : 1 + len(enc_p)]), grads[1 + len(enc_p) :]
 
         with record_function("caption.optimizer"):

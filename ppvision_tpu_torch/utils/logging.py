@@ -5,7 +5,9 @@ printf and opt-in wandb, solver.py:196-209; ``AverageMeter``,
 Image_Caption/utils.py:412-430): one writer for the console, a
 ``metrics.jsonl`` file and, where installed, wandb and tensorboard.
 ``profile_trace`` runs ``torch.profiler`` over its block and writes a
-Chrome trace (``chrome://tracing``, Perfetto) into its directory.
+Chrome trace (``chrome://tracing``, Perfetto) into its directory; the
+trace carries the program's ``deid.*``, ``serve.*`` and ``caption.*``
+ranges.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 import time
 from typing import Any
 
-__all__ = ["AverageMeter", "MetricWriter", "profile_trace", "StepTimer"]
+__all__ = ["AverageMeter", "MetricWriter", "profile_trace"]
 
 
 class AverageMeter:
@@ -38,22 +40,6 @@ class AverageMeter:
     @property
     def avg(self) -> float:
         return self.sum / max(self.count, 1)
-
-
-class StepTimer:
-    """Batch/data-time pair (reference train.py:252-255)."""
-
-    def __init__(self):
-        self.batch = AverageMeter()
-        self.data = AverageMeter()
-        self._t = time.time()
-
-    def data_tick(self):
-        self.data.update(time.time() - self._t)
-
-    def batch_tick(self):
-        self.batch.update(time.time() - self._t)
-        self._t = time.time()
 
 
 class MetricWriter:

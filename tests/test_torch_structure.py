@@ -3,9 +3,11 @@ the JAX package through the reference's key names, its entry points
 refuse to run on a missing GPU, and its server batches without changing
 results."""
 
+import math
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -19,7 +21,7 @@ from ppvision_tpu_torch.models.raft import build_raft
 from ppvision_tpu_torch.serve import DeIdServer
 from ppvision_tpu_torch.utils import jax_params
 
-from .torch_parity import TINY, jax_bundle, numpy_tree, torch_cfg
+from .torch_parity import TINY, jax_bundle, numpy_tree, torch_cfg, two_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -213,3 +215,70 @@ def test_server_uint8_is_byte_identical_to_host_conversion(server_setup):
     for f, u in zip(f32, u8):
         assert u.dtype == np.uint8
         np.testing.assert_array_equal(u, np.clip(f * 255.0, 0, 255).astype(np.uint8))
+
+
+def test_server_records_its_spans_with_each_batch_number(server_setup, monkeypatch):
+    """A profiled CPU run of ``serve`` shows every ``deid.*`` and ``serve.*``
+    range once a batch, ``deid.decode`` once a style, the ``deid.*``
+    ranges inside ``serve.launch``; each ``serve.*`` range is opened with
+    its batch's dispatch number as ``args``."""
+    import ppvision_tpu_torch.serve as serve_mod
+
+    bundle, xr, yr, imgs = server_setup
+    server = DeIdServer(bundle, xr, yr, batch_size=2, depth=1, out_space="uint8")
+    opened = []
+    real = serve_mod.record_function
+
+    def spy(name, args=None):
+        opened.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(serve_mod, "record_function", spy)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert len(list(server.serve(imgs[:3]))) == 3
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(("deid.", "serve.")):
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    batches, styles = 2, len(yr)
+    serve_names = ("serve.assemble", "serve.upload", "serve.launch", "serve.quantize", "serve.drain")
+    deid_names = ("deid.camera", "deid.fan", "deid.style", "deid.encode", "deid.decode", "deid.cast")
+    assert {k: len(v) for k, v in ranges.items()} == {
+        **dict.fromkeys(serve_names + deid_names, batches), "deid.decode": batches * styles}
+    for name in deid_names:
+        assert all(any(a <= s and t <= b for a, b in ranges["serve.launch"]) for s, t in ranges[name]), name
+    for name in serve_names:
+        assert [args for n, args in opened if n == name] == ["0", "1"], name
+
+
+def test_server_host_counters_sum_within_the_wall_time_and_reset(server_setup):
+    bundle, xr, yr, imgs = server_setup
+    server = DeIdServer(bundle, xr, yr, batch_size=2, depth=1)
+    t0 = time.perf_counter()
+    assert len(list(server.serve(imgs))) == 5
+    wall = time.perf_counter() - t0
+    st = server.stats()
+    per_batch = ("assemble_s", "upload_s", "launch_s", "drain_wait_s")
+    assert all(st[k] >= 0 for k in per_batch + ("queue_wait_s",)) and st["launch_s"] > 0
+    assert sum(st[k] for k in per_batch) <= wall
+    assert st["queue_wait_s"] <= len(imgs) * wall
+    server.reset_stats()
+    st = server.stats()
+    assert all(st[k] == 0.0 for k in per_batch + ("queue_wait_s",))
+    assert st["latency_p50_s"] is None and st["latency_max_s"] is None
+
+
+def test_latency_histogram_keeps_each_quantile_within_its_bucket():
+    """The server's bounded latency record against the exact quantile of
+    the same rank (nearest rank) over a wide lognormal sample."""
+    from ppvision_tpu_torch.serve import _LatencyHistogram
+
+    lat = np.random.default_rng(0).lognormal(-3.0, 1.5, 2001)
+    hist = _LatencyHistogram()
+    for x in lat:
+        hist.add(float(x))
+    half = hist.RATIO ** 0.5 * (1 + 1e-9)
+    for q in (0.01, 0.5, 0.9, 0.99):
+        exact = np.sort(lat)[math.ceil(q * lat.size) - 1]
+        assert exact / half <= hist.quantile(q) <= exact * half, q
+    assert hist.max == lat.max() and hist.quantile(0.5) <= hist.quantile(0.99) <= hist.quantile(1.0) <= hist.max

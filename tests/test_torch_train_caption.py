@@ -192,8 +192,9 @@ def test_camera_train_false_keeps_the_lens():
 
 
 def test_step_names_its_parts():
-    """The step's forward parts and optimizer run in ``record_function``
-    ranges, and its backward under autograd's node names, which
+    """The step's forward parts, its backward (``caption.backward`` on the
+    calling thread) and its optimizer run in ``record_function`` ranges,
+    and its backward's work under autograd's node names, which
     ``chip_smoke.device_ms_by_span`` splits a profile's time by (CPU self
     time standing in for the card's kernels)."""
     import chip_smoke
@@ -207,3 +208,4 @@ def test_step_names_its_parts():
     by_span, by_node = chip_smoke.device_ms_by_span(stand_in_kernels(prof.events()), chip_smoke.CAPTION_TRAIN_SPANS)
     assert all(by_span.get(s, 0) > 0 for s in (*chip_smoke.CAPTION_TRAIN_SPANS, "backward"))
     assert "ConvolutionBackward0" in by_node and len(by_node) == 10  # the ten largest autograd nodes
+    assert sum(e.name == "caption.backward" for e in prof.events()) == 1

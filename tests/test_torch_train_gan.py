@@ -317,7 +317,7 @@ def test_metric_writer_and_profile_trace_write_their_files(tmp_path, capsys):
     ``profile_trace`` writes a Chrome trace into its directory."""
     import json
 
-    from ppvision_tpu_torch.utils.logging import AverageMeter, MetricWriter, StepTimer, profile_trace
+    from ppvision_tpu_torch.utils.logging import AverageMeter, MetricWriter, profile_trace
 
     writer = MetricWriter(str(tmp_path / "log"), use_wandb=True, log_interval=2, use_tensorboard=True)
     for step in (1, 2, 3, 4):
@@ -328,12 +328,10 @@ def test_metric_writer_and_profile_trace_write_their_files(tmp_path, capsys):
                      {"step": 4, "D/latent_real": 2.0, "G/lambda_ds": 1.0}]
     out = capsys.readouterr().out
     assert "step 4: D/latent_real: [2.0000]" in out
-    meter, timer = AverageMeter(), StepTimer()
+    meter = AverageMeter()
     meter.update(2.0, n=3)
     meter.update(4.0)
-    timer.data_tick()
-    timer.batch_tick()
-    assert meter.avg == 2.5 and meter.val == 4.0 and timer.batch.count == 1
+    assert meter.avg == 2.5 and meter.val == 4.0
     with profile_trace(str(tmp_path / "trace")):
         torch.ones(8).sum()
     with profile_trace(str(tmp_path / "off"), enabled=False):
