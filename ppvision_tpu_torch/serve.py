@@ -10,20 +10,30 @@ batches in flight, and yields per-request results in submission order.
   the generator's skip mean spans the whole batch, so one NaN pad would
   poison every output of the batch.
 - **Pipelined dispatch**: CUDA work is enqueued asynchronously; the
-  input goes up through pinned memory without a sync, and the one sync
-  is the ``.cpu()`` of batch t - depth when batch t is dispatched.
+  input goes up through pinned memory without a sync.  At dispatch each
+  batch's output is copied into fresh pinned host memory on a copy
+  stream the server owns, after the batch's work on the compute stream,
+  and the one sync is the wait for that copy's event when batch t -
+  depth is drained at the dispatch of batch t.  So the copy runs beside
+  the next batches' kernels, and the compute stream never waits on the
+  host.  A fresh host tensor a batch, not a ring: callers may keep
+  every output (``list(server.serve(...))``), and torch's caching host
+  allocator hands a block out again only once every view of it is gone
+  and its copy has completed.
 - **Styles fixed per server**, as in the eval workload.
 - **Observability**: each batch's host path runs in
   ``torch.profiler.record_function`` ranges whose ``args`` is the
   batch's dispatch number: ``serve.assemble`` (check, pad, stack),
   ``serve.upload`` (pinned copy up; under a mesh, the broadcast),
   ``serve.launch`` (the pipeline, whose ``deid.*`` and ``parallel.*``
-  ranges nest inside it), ``serve.quantize`` (the uint8 conversion) and
-  ``serve.drain`` (the copy to the host and its sync).  The profilers
+  ranges nest inside it), ``serve.quantize`` (the uint8 conversion),
+  ``serve.copy`` (enqueueing the copy to the host, inside
+  ``serve.launch``) and ``serve.drain`` (the wait for that copy).  The profilers
   of torch 2.11 and 2.13 keep the args string in no event; there the
   k-th range of a name on the serving thread is the k-th batch.  ``stats()``
   sums the host seconds of the first three and of the drain, and each
-  request's wait from arrival to dispatch, with no profiler.
+  request's wait from arrival to dispatch, and counts the drains that
+  found their copy done (``copies_ready``), with no profiler.
 - **Sharded serving** (``mesh``, one process a GPU): every rank builds
   the server and calls ``warmup`` and ``serve`` together.  Rank 0 is
   the front door: it reads the requests and makes every batching
@@ -143,6 +153,9 @@ class DeIdServer:
         self._pending_gauge = 0
         self._inflight_gauge = 0
         self._max_queue_depth = 0
+        self._copies_ready = 0
+        # The stream each batch's output goes to the host on (``_copy_out``).
+        self._copy_stream = torch.cuda.Stream(bundle.device) if bundle.device.type == "cuda" else None
 
     def stats(self) -> dict:
         """Request count, dispatched-batch count, per-request latency
@@ -153,9 +166,11 @@ class DeIdServer:
         in-flight requests observed); and host seconds summed over
         batches: ``assemble_s`` (check, pad, stack), ``upload_s`` (pinned
         copy up, and under a mesh the broadcast of the batch), ``launch_s``
-        (enqueueing the pipeline), ``drain_wait_s`` (blocked in the
-        drain's copy to the host), and over requests ``queue_wait_s``
-        (arrival to dispatch)."""
+        (enqueueing the pipeline and the copy to the host),
+        ``drain_wait_s`` (blocked in the drain's wait for that copy), and
+        over requests ``queue_wait_s`` (arrival to dispatch); and
+        ``copies_ready``, the drains whose copy had completed when they
+        began (always 0 on the CPU, which copies nothing)."""
         return dict(
             completed=self._completed,
             batches_dispatched=self._batches_dispatched,
@@ -165,6 +180,7 @@ class DeIdServer:
             pending=self._pending_gauge,
             inflight_batches=self._inflight_gauge,
             max_queue_depth=self._max_queue_depth,
+            copies_ready=self._copies_ready,
             **self._host_s,
         )
 
@@ -174,14 +190,23 @@ class DeIdServer:
         self._batches_dispatched = 0
         self._completed = 0
         self._max_queue_depth = 0
+        self._copies_ready = 0
 
     def warmup(self) -> None:
         """Run one batch ahead of the first request (builds the kernels
         and fills the caches); under a mesh every rank calls it.
-        Mid-gray, not zeros: see the module doc."""
+        Mid-gray, not zeros: see the module doc.  Its output goes through
+        the copy path once for each pinned block a served pipeline holds
+        at once (depth + 1 batches in flight and the one being yielded),
+        so torch's host allocator has them cached before the first
+        request."""
         n = self._bundle.cfg.model.img_size
         dummy = np.full((self._batch, n, n, 3), 0.5, np.float32)
-        self._run(self._upload(dummy), -1).cpu()  # dispatch number -1: not a dispatch
+        out = self._run(self._upload(dummy), -1)  # dispatch number -1: not a dispatch
+        copies = [self._copy_out(out, -1) for _ in range(self._depth + 2)]
+        for _, done in copies:
+            if done is not None:
+                done.synchronize()
 
     @contextlib.contextmanager
     def _span(self, name: str, number: int, counter: str):
@@ -215,13 +240,31 @@ class DeIdServer:
                 out = torch.clamp(out * 255.0, 0, 255).to(torch.uint8)
         return out
 
-    def _dispatch(self, batch_np: np.ndarray, valid: int, number: int) -> torch.Tensor:
+    def _copy_out(self, out: torch.Tensor, number: int) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+        """Start the copy of a batch's output to the host; returns the host
+        tensor and the event of the copy's end.  On CUDA: a fresh pinned
+        tensor, filled on the copy stream once the compute stream has
+        made ``out``; the allocator keeps ``out`` until the copy has read
+        it.  On the CPU the output is the host tensor, with no event."""
+        with record_function("serve.copy", str(number)):
+            if self._copy_stream is None:
+                return out, None
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._copy_stream.wait_stream(torch.cuda.current_stream(out.device))
+            with torch.cuda.stream(self._copy_stream):
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            out.record_stream(self._copy_stream)
+            return host, done
+
+    def _dispatch(self, batch_np: np.ndarray, valid: int, number: int) -> tuple[torch.Tensor, torch.cuda.Event | None]:
         with self._span("serve.upload", number, "upload_s"):
             x = self._upload(batch_np)
             if self._mesh is not None:
                 self._exchange(x, valid)
         with self._span("serve.launch", number, "launch_s"):
-            return self._run(x, number)
+            return self._copy_out(self._run(x, number), number)
 
     def _exchange(self, x: torch.Tensor | None, valid: int = 0, stop: bool = False) -> tuple[int, bool]:
         """The header (valid count, stop flag) and, unless it says stop,
@@ -277,8 +320,9 @@ class DeIdServer:
 
     def _lead(self, images: Iterable[np.ndarray], max_wait_s: float | None) -> Iterator[np.ndarray]:
         n = self._bundle.cfg.model.img_size
-        # (result, valid count, arrival timestamps of the valid requests, dispatch number)
-        inflight: list[tuple[torch.Tensor, int, list[float], int]] = []
+        # (host result, its copy's event, valid count, arrival timestamps of
+        # the valid requests, dispatch number)
+        inflight: list[tuple[torch.Tensor, torch.cuda.Event | None, int, list[float], int]] = []
 
         def note_depth(n_pending: int) -> None:
             self._pending_gauge = n_pending
@@ -288,9 +332,12 @@ class DeIdServer:
             )
 
         def drain(entry):
-            fakes, valid, arrivals, number = entry
+            host, copied, valid, arrivals, number = entry
             with self._span("serve.drain", number, "drain_wait_s"):
-                host = fakes.cpu().numpy()  # (R, B, H, W, 3): the only sync point
+                if copied is not None:
+                    self._copies_ready += copied.query()
+                    copied.synchronize()  # the only sync point
+                host = host.numpy()  # (R, B, H, W, 3)
             done = time.perf_counter()
             for t in arrivals:
                 self._latency.add(done - t)
@@ -311,7 +358,7 @@ class DeIdServer:
             with self._span("serve.assemble", number, "assemble_s"):
                 imgs = [check(img) for img in pending]
                 batch = np.stack(imgs + [imgs[-1]] * (self._batch - len(imgs)))
-            inflight.append((self._dispatch(batch, len(pending), number), len(pending), arrivals, number))
+            inflight.append((*self._dispatch(batch, len(pending), number), len(pending), arrivals, number))
             self._batches_dispatched += 1
             note_depth(0)
 

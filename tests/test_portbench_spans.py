@@ -13,7 +13,7 @@ from portbench.trace import WINDOW
 MS = 1_000_000  # trace nanoseconds a millisecond
 RELEASE = ["deid.camera_ms.batch", "deid.fan_ms.batch", "deid.style_ms.batch", "deid.encode_ms.batch",
            "deid.decode_ms.batch", "serve.output_ms.batch", "serve.host_ms.batch", "serve.drain_wait_ms.batch",
-           "serve.idle_ms.batch"]
+           "serve.idle_ms.batch", "serve.copy_ready_pct.batch"]
 CAPTION = ["caption.decoder_idle_ms.step", "caption.backward_idle_ms.step", "caption.optimizer_idle_ms.step"]
 MAIN, OTHER = 1, 2
 
@@ -64,12 +64,13 @@ PROGRAM = [
     _on_device("serve.quantize", 76, 77),  # 1
     _on_device("serve.drain", 77, 90),  # busy to 80: 3
 ]
-COUNTERS = dict(batches_dispatched=2, assemble_s=0.001, upload_s=0.002, launch_s=0.005, drain_wait_s=0.03)
+COUNTERS = dict(batches_dispatched=2, assemble_s=0.001, upload_s=0.002, launch_s=0.005, drain_wait_s=0.03,
+                copies_ready=1)
 # Each reader's value on the stand-ins: 2 batches, 5 steps.
 WANT = {
     "deid.camera_ms.batch": 2.5, "deid.fan_ms.batch": 2.5, "deid.style_ms.batch": 1.5, "deid.encode_ms.batch": 2.0,
     "deid.decode_ms.batch": 6.5, "serve.output_ms.batch": 2.5, "serve.host_ms.batch": 4.0,
-    "serve.drain_wait_ms.batch": 15.0, "serve.idle_ms.batch": 25.0,
+    "serve.drain_wait_ms.batch": 15.0, "serve.idle_ms.batch": 25.0, "serve.copy_ready_pct.batch": 50.0,
     "caption.decoder_idle_ms.step": 3.0, "caption.backward_idle_ms.step": 8.0, "caption.optimizer_idle_ms.step": 2.0,
 }
 

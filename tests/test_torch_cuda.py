@@ -362,6 +362,39 @@ def test_deid_path_runs_every_kernel_and_matches_cpu(dev):
     assert np.abs(out["bfloat16", "cuda"] - out["bfloat16", "cpu"]).max() <= 1.5 * gap + 1e-3
 
 
+def test_server_copy_stream_keeps_every_output_byte_for_byte(dev, monkeypatch):
+    """``DeIdServer`` on the card copies each batch's output into fresh
+    pinned memory on its copy stream: a bf16 64^2 bundle, 3 batches of 4
+    at depth 2 in uint8, every output kept to the end, equal byte for
+    byte to the same server copying by ``.cpu()`` on the compute stream;
+    at least one drain found its copy done."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig
+    from ppvision_tpu_torch.deid import build_deid
+    from ppvision_tpu_torch.serve import DeIdServer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = FaceDeIdConfig(model=ModelConfig(img_size=64, style_dim=16, latent_dim=8, max_conv_dim=64,
+                                           compute_dtype="bfloat16"), camera=CameraConfig(n=32))
+    bundle = build_deid(0, cfg, device=dev)
+    rng = np.random.default_rng(19)
+    imgs = [rng.random((64, 64, 3), dtype=np.float32) for _ in range(12)]
+    xr = rng.random((2, 64, 64, 3), dtype=np.float32)
+    yr = np.array([0, 1])
+    outs, stats = {}, {}
+    for tag in ("copy stream", ".cpu()"):
+        server = DeIdServer(bundle, xr, yr, batch_size=4, depth=2, out_space="uint8")
+        if tag == ".cpu()":
+            server._copy_out = lambda out, number: (out.cpu(), None)
+        server.warmup()
+        outs[tag] = list(server.serve(imgs))
+        stats[tag] = server.stats()
+    assert len(outs["copy stream"]) == 12 and all(o.dtype == np.uint8 for o in outs["copy stream"])
+    for got, want in zip(outs["copy stream"], outs[".cpu()"]):
+        np.testing.assert_array_equal(got, want)
+    assert stats["copy stream"]["batches_dispatched"] == 3
+    assert 1 <= stats["copy stream"]["copies_ready"] <= 3 and stats[".cpu()"]["copies_ready"] == 0
+
+
 # ---------------------------------------------------------------------------
 # Gradients through the kernels (the training slice).  Each kernel's
 # backward is its plain version's VJP; conv3x3's is differentiable again.

@@ -220,8 +220,8 @@ def test_server_uint8_is_byte_identical_to_host_conversion(server_setup):
 def test_server_records_its_spans_with_each_batch_number(server_setup, monkeypatch):
     """A profiled CPU run of ``serve`` shows every ``deid.*`` and ``serve.*``
     range once a batch, ``deid.decode`` once a style, the ``deid.*``
-    ranges inside ``serve.launch``; each ``serve.*`` range is opened with
-    its batch's dispatch number as ``args``."""
+    ranges and ``serve.copy`` inside ``serve.launch``; each ``serve.*``
+    range is opened with its batch's dispatch number as ``args``."""
     import ppvision_tpu_torch.serve as serve_mod
 
     bundle, xr, yr, imgs = server_setup
@@ -241,14 +241,38 @@ def test_server_records_its_spans_with_each_batch_number(server_setup, monkeypat
         if e.name().startswith(("deid.", "serve.")):
             ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
     batches, styles = 2, len(yr)
-    serve_names = ("serve.assemble", "serve.upload", "serve.launch", "serve.quantize", "serve.drain")
+    serve_names = ("serve.assemble", "serve.upload", "serve.launch", "serve.quantize", "serve.copy", "serve.drain")
     deid_names = ("deid.camera", "deid.fan", "deid.style", "deid.encode", "deid.decode", "deid.cast")
     assert {k: len(v) for k, v in ranges.items()} == {
         **dict.fromkeys(serve_names + deid_names, batches), "deid.decode": batches * styles}
-    for name in deid_names:
+    for name in deid_names + ("serve.copy",):
         assert all(any(a <= s and t <= b for a, b in ranges["serve.launch"]) for s, t in ranges[name]), name
     for name in serve_names:
         assert [args for n, args in opened if n == name] == ["0", "1"], name
+
+
+@pytest.mark.parametrize("out_space", ["float32", "uint8"])
+def test_server_outputs_kept_to_the_end_match_direct_calls(server_setup, out_space):
+    """Every output of 5 sources at batch 2, depth 1 kept until the last
+    batch is drained, each byte for byte as the pipeline gives its padded
+    batch (a later batch writing into an earlier one's host memory would
+    show); ``copies_ready`` counts at most the drains and resets."""
+    bundle, xr, yr, imgs = server_setup
+    server = DeIdServer(bundle, xr, yr, batch_size=2, depth=1, out_space=out_space)
+    server.warmup()
+    outs = list(server.serve(imgs))
+    for b, batch in enumerate([imgs[0:2], imgs[2:4], [imgs[4], imgs[4]]]):
+        want = deid_multi_style(bundle, torch.from_numpy(np.stack(batch)), torch.from_numpy(xr), torch.from_numpy(yr))
+        if out_space == "uint8":
+            want = torch.clamp(want * 255.0, 0, 255).to(torch.uint8)
+        want = want.numpy()
+        for i, out in enumerate(outs[2 * b: 2 * b + 2]):
+            assert out.dtype == want.dtype
+            np.testing.assert_array_equal(out, want[:, i])
+    st = server.stats()
+    assert st["batches_dispatched"] == 3 and 0 <= st["copies_ready"] <= 3
+    server.reset_stats()
+    assert server.stats()["copies_ready"] == 0
 
 
 def test_server_host_counters_sum_within_the_wall_time_and_reset(server_setup):
