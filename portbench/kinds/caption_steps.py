@@ -46,6 +46,20 @@ VARIANTS = {
 # The numbers of ``judge`` that decide ``correct``, each against its limit.
 COMPARED = ("first_grad_gap_median", "change_gap_median", "bn_step1_diff_median", "decoder_grad_gap_median")
 SPANS = ("caption.camera", "caption.encoder", "caption.decoder", "caption.loss", "caption.optimizer")
+# What the harness's tests read of this driver.  ``TOY``: the entries of
+# the configuration and the mix that the CPU rehearsal changes, small
+# enough to run a whole cell in seconds on a few CPU threads.
+# ``CONTROLS``: the variants a stated precision lower that must read not
+# correct at the cell's own size on the card.  ``FAULTS``: the variants
+# that a CPU rehearsal must read not correct.
+TOY = {
+    "config": {"vocab_size": 40, "encoder": {"stages": [1, 1, 1, 1], "compute_dtype": "float32"},
+               "caption": {"encoded_image_size": 4},
+               "lens": {"wave_res": 64, "patch_size": 32, "zernike_terms": 10, "mask_radius_px": 8}},
+    "mix": {"batch_size": 4, "caption_tokens": 8, "words": [2, 4], "ring": 4, "check_steps": 3},
+}
+CONTROLS = ("fp8",)
+FAULTS = ("fp8", "half_batch")
 
 
 @dataclasses.dataclass

@@ -35,6 +35,21 @@ from ..work import flops
 __all__ = ["prepare", "drive", "free", "judge", "work"]
 
 MODULES = ("camera", "fan", "generator", "mapping_network", "style_encoder")
+# What the harness's tests read of this driver.  ``TOY``: the entries of
+# the configuration and the mix that the CPU rehearsal changes, small
+# enough to run a whole cell in seconds on a few CPU threads
+# (``rate_per_s`` is the open loop's).  ``CONTROLS``: the variants a
+# stated precision lower that must read not correct at the cell's own
+# size on the card.  ``FAULTS``: the variants that a CPU rehearsal must
+# read not correct; none, since the de-id faults patch the program's
+# functions and are tests of their own.
+TOY = {
+    "config": {"model": {"img_size": 64, "max_conv_dim": 64, "compute_dtype": "float32"},
+               "camera": {"n": 64, "zernike_terms": 10}},
+    "mix": {"pool": 6, "styles": 2, "batch_size": 2, "check_batches": 2, "rate_per_s": 30.0},
+}
+CONTROLS = ("int8",)
+FAULTS = ()
 
 
 @dataclasses.dataclass

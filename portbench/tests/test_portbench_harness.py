@@ -6,6 +6,7 @@ Run here: ``python -m pytest portbench/tests -q``.  On the card, the
 control: ``python -m pytest portbench/tests -q -m cuda``.
 """
 
+import copy
 import json
 import os
 import re
@@ -16,7 +17,6 @@ import pytest
 import torch
 
 from portbench import run
-from portbench.tests.toy import TOY
 
 ROOT = run.ROOT
 SPEC = run.load_spec()
@@ -32,15 +32,68 @@ REHEARSED = dict(SPEC, workloads=SPEC["workloads"] + [
      "workloads": [OPEN_LOOP]}])
 
 
-def _family(workload: str) -> str:
-    _, cfg, _ = run.cell_files(REHEARSED, workload)
-    return cfg["family"]
+# What each driver declares for these tests (see ``kinds/``).
+CONTRACT = ("TOY", "CONTROLS", "FAULTS")
 
 
-def rehearse(workload: str, seed: int = 4294967311, seconds: float = 1.5, trace: bool = False, **kw) -> dict:
-    """A whole run of a cell on the CPU at the toy sizes of its family."""
-    return run.run(workload, seed, seconds, trace, device="cpu", overrides=TOY[_family(workload)], spec=REHEARSED,
-                   **kw)
+def kind_name(workload: str, spec: dict = REHEARSED) -> str:
+    """The ``kind`` of a cell's traffic mix, which names its driver."""
+    return run.cell_files(spec, workload)[2]["kind"]
+
+
+def kind(workload: str, spec: dict = REHEARSED):
+    """The driver of a cell's traffic mix, ``kinds/<kind>.py``."""
+    return run.load_kind(kind_name(workload, spec))
+
+
+def cells_of_kind(name: str, spec: dict = REHEARSED) -> list[str]:
+    return [w["name"] for w in spec["workloads"] if kind_name(w["name"], spec) == name]
+
+
+def controls(spec: dict = SPEC) -> list[tuple[str, str]]:
+    """(cell, control) of every cell: the controls its driver declares."""
+    return [(w["name"], v) for w in spec["workloads"] for v in getattr(kind(w["name"], spec), "CONTROLS", ())]
+
+
+def faults(spec: dict = REHEARSED) -> list[tuple[str, str]]:
+    """(fault, cell) of every rehearsed cell: the variants its driver
+    declares that a rehearsal must read not correct."""
+    return [(v, w["name"]) for w in spec["workloads"] for v in getattr(kind(w["name"], spec), "FAULTS", ())]
+
+
+def _missing(over: dict, into: dict, at: str = "") -> list[str]:
+    """Keys of ``over``, nested ones too, that ``into`` lacks."""
+    out = []
+    for k, v in over.items():
+        if k not in into:
+            out.append(at + k)
+        elif isinstance(v, dict) and isinstance(into[k], dict):
+            out += _missing(v, into[k], f"{at}{k}.")
+    return out
+
+
+def contract_breaches(spec: dict, workload: str) -> list[str]:
+    """What a cell's driver fails to declare, by kind and constant."""
+    _, cfg, mix = run.cell_files(spec, workload)
+    drv, where = run.load_kind(mix["kind"]), f"kinds/{mix['kind']}.py"
+    out = [f"{where} declares no {c}" for c in CONTRACT if not hasattr(drv, c)]
+    toy = getattr(drv, "TOY", {})
+    if not (isinstance(toy, dict) and isinstance(toy.get("config"), dict) and isinstance(toy.get("mix"), dict)):
+        out.append(f"{where}: TOY holds no 'config' and 'mix' dicts")
+    else:
+        out += [f"{where}: TOY['config'] sets {k!r}, which {workload}'s configuration lacks"
+                for k in _missing(toy["config"], cfg)]
+    for c in ("CONTROLS", "FAULTS"):
+        v = getattr(drv, c, ())
+        if not (isinstance(v, tuple) and all(isinstance(x, str) for x in v)):
+            out.append(f"{where}: {c} is not a tuple of strings")
+    return out
+
+
+def rehearse(workload: str, seed: int = 4294967311, seconds: float = 1.5, trace: bool = False,
+             spec: dict = REHEARSED, **kw) -> dict:
+    """A whole run of a cell on the CPU at the toy sizes its driver declares."""
+    return run.run(workload, seed, seconds, trace, device="cpu", overrides=kind(workload, spec).TOY, spec=spec, **kw)
 
 
 def test_every_name_and_file_is_found():
@@ -52,6 +105,7 @@ def test_every_name_and_file_is_found():
     for w in SPEC["workloads"]:
         wl, cfg, mix = run.cell_files(SPEC, w["name"])
         assert run.load_kind(mix["kind"]) and w["chips"] == 1
+        assert contract_breaches(SPEC, w["name"]) == []
     e2e = {m["name"] for m in SPEC["end_to_end"]}
     for m in SPEC["per_layer"]:
         reader = run.load_reader(m["name"])
@@ -105,11 +159,7 @@ def test_without_a_card_the_command_refuses():
 # --- faults the comparison has to catch -----------------------------------
 
 
-def _deid_cells():
-    return [w for w in CELLS + [OPEN_LOOP] if _family(w) == "deid"]
-
-
-@pytest.mark.parametrize("workload", _deid_cells())
+@pytest.mark.parametrize("workload", cells_of_kind("deid_serve"))
 def test_an_altered_answer_fails(workload, monkeypatch):
     """Each source's answers handed back under the wrong styles, where the
     pipeline produces them."""
@@ -120,7 +170,7 @@ def test_an_altered_answer_fails(workload, monkeypatch):
     assert rehearse(workload)["correct"] is False
 
 
-@pytest.mark.parametrize("workload", _deid_cells())
+@pytest.mark.parametrize("workload", cells_of_kind("deid_serve"))
 def test_a_skip_mean_over_half_the_batch_fails(workload, monkeypatch):
     """The generator's skip features centred on the mean of half of the
     batch only."""
@@ -139,11 +189,7 @@ def test_a_skip_mean_over_half_the_batch_fails(workload, monkeypatch):
     assert rehearse(workload)["correct"] is False
 
 
-def _caption_cells():
-    return [w for w in CELLS if _family(w) == "caption"]
-
-
-@pytest.mark.parametrize("workload", _caption_cells())
+@pytest.mark.parametrize("workload", cells_of_kind("caption_steps"))
 def test_a_step_that_leaves_the_state_unchanged_fails(workload, monkeypatch):
     import ppvision_tpu_torch.train.caption as tc
 
@@ -151,7 +197,7 @@ def test_a_step_that_leaves_the_state_unchanged_fails(workload, monkeypatch):
     assert rehearse(workload)["correct"] is False
 
 
-@pytest.mark.parametrize("workload", _caption_cells())
+@pytest.mark.parametrize("workload", cells_of_kind("caption_steps"))
 def test_a_loss_over_half_the_batch_fails(workload, monkeypatch):
     import ppvision_tpu_torch.train.caption as tc
 
@@ -165,15 +211,15 @@ def test_a_loss_over_half_the_batch_fails(workload, monkeypatch):
     assert rehearse(workload)["correct"] is False
 
 
-@pytest.mark.parametrize("workload", _caption_cells())
-@pytest.mark.parametrize("variant", ["fp8", "half_batch"])
+@pytest.mark.parametrize("variant,workload", faults())
 def test_the_reference_in_the_programs_place_reads_wrong(workload, variant):
-    """The control (float8 convs) and the planted half-batch loss, each
-    the reference put in the program's place for the checked steps."""
+    """Each fault a cell's driver declares, such as the caption steps'
+    control (float8 convs) and planted half-batch loss, each the
+    reference put in the program's place for the checked steps."""
     assert rehearse(workload, variant=variant)["correct"] is False
 
 
-@pytest.mark.parametrize("workload", _caption_cells())
+@pytest.mark.parametrize("workload", cells_of_kind("caption_steps"))
 def test_a_bfloat16_decoder_reads_far_above_the_program(workload):
     """The decoder's control, the reference with a bfloat16 decoder and
     loss in the program's place.  At full size the bfloat16 encoder's
@@ -183,13 +229,38 @@ def test_a_bfloat16_decoder_reads_far_above_the_program(workload):
     assert gap(rehearse(workload, variant="bf16_decoder")) > 30 * gap(rehearse(workload))
 
 
-# --- on the card -------------------------------------------------------------
+# --- a configuration of a family the harness has not seen -----------------
 
-CONTROLS = {"deid": ["int8"], "caption": ["fp8"]}
+
+def test_a_configuration_of_an_unseen_family_is_rehearsed(tmp_path):
+    """A configuration whose ``family`` no test names, added as its own
+    file and one cell on an existing traffic mix: the case lists and toy
+    sizes come from the mix's driver, and the cell rehearses correct."""
+    cfg = dict(run._json(os.path.join("portbench", "configs", "caption_sat_256.json")), family="unseen")
+    path = tmp_path / "unseen_256.json"
+    path.write_text(json.dumps(cfg))
+    spec = copy.deepcopy(SPEC)
+    spec["configs"].append(dict(next(c for c in SPEC["configs"] if c["name"] == "caption_sat_256"),
+                                name="unseen_256", file=str(path)))
+    spec["workloads"].append(dict(next(w for w in SPEC["workloads"] if w["config"] == "caption_sat_256"),
+                                  name="unseen-train", config="unseen_256"))
+    for m in spec["end_to_end"]:
+        if m["name"] == "step_s":
+            m["workloads"].append("unseen-train")
+    assert contract_breaches(spec, "unseen-train") == []
+    assert "unseen-train" in cells_of_kind("caption_steps", spec)
+    assert ("unseen-train", "fp8") in controls(spec)
+    assert ("fp8", "unseen-train") in faults(spec)
+    out = rehearse("unseen-train", spec=spec)
+    assert out["correct"] is True, out["compared"]
+    assert set(out["metrics"]) == {"step_s", "setup_s"}
+
+
+# --- on the card -------------------------------------------------------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload,variant", [(w, v) for w in CELLS for v in CONTROLS[_family(w)]])
+@pytest.mark.parametrize("workload,variant", controls())
 def test_the_lower_precision_control_fails_on_the_card(workload, variant):
     """The control at the cell's own size on three seeds: the program, or
     the reference in its place, a stated precision lower must read above

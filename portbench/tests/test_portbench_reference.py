@@ -13,19 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import inputs, weights
+from portbench import inputs, run, weights
 from portbench.reference import caption as ref_caption
 from portbench.reference import deid as ref_deid
 from portbench.reference import optics
-from portbench.tests.toy import TOY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _config(name: str, family: str) -> dict:
+def _config(name: str, kind: str) -> dict:
+    """A configuration at the toy sizes that its traffic's driver declares."""
     with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
         cfg = json.load(f)
-    for k, v in TOY[family]["config"].items():
+    for k, v in run.load_kind(kind).TOY["config"].items():
         cfg[k] = {**cfg[k], **v} if isinstance(v, dict) else v
     return cfg
 
@@ -41,7 +41,7 @@ def deid():
     from portbench.kinds.deid_serve import MODULES, _port_config
 
     torch.manual_seed(0)
-    cfg = _config("face_deid_256", "deid")
+    cfg = _config("face_deid_256", "deid_serve")
     bundle = build_deid(5, _port_config(cfg, None), "cpu")
     mods = {k: getattr(bundle, k) for k in MODULES}
     states = weights.make_states({k: {n: t.shape for n, t in m.state_dict().items()} for k, m in mods.items()},
@@ -114,10 +114,10 @@ def caption():
     from ppvision_tpu_torch.config import CaptionConfig
     from ppvision_tpu_torch.optics.lens import LensSpec, make_lens_constants
     from ppvision_tpu_torch.train.caption import init_caption, make_caption_train_step
-    from portbench.kinds.caption_steps import MODULES, _batches
+    from portbench.kinds.caption_steps import MODULES, TOY, _batches
 
-    cfg = _config("caption_sat_256", "caption")
-    mix = dict(TOY["caption"]["mix"])
+    cfg = _config("caption_sat_256", "caption_steps")
+    mix = dict(TOY["mix"])
     spec = LensSpec(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg["lens"].items()})
     ccfg = CaptionConfig(**cfg["caption"])
     consts = make_lens_constants(spec, device="cpu")
