@@ -16,6 +16,14 @@ Port of ``ppvision_tpu/train/gan.py`` (reference
 6. the EMA of G, the mapping network and the style encoder, in the JAX
    form ``p + beta * (e - p)``.
 
+The step's parts run in ``torch.profiler.record_function`` ranges, for
+the benchmark's readers: ``gan.frozen`` (camera and both FANs),
+``gan.d_latent``, ``gan.d_ref``, ``gan.g_latent`` and ``gan.g_ref`` (the
+four sub-steps), nested in them ``gan.flow`` (RAFT's forward),
+``gan.lpips``, ``gan.backward`` (each sub-step's ``autograd.grad`` and
+its gradient all-reduce) and ``gan.optimizer`` (its Adam steps), then
+``gan.ema``.
+
 With ``TrainConfig.remat`` G and D run under
 ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps them
 in ``jax.checkpoint``.
@@ -49,6 +57,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import FaceDeIdConfig
@@ -162,20 +171,22 @@ def _grads(loss: torch.Tensor, params: list[nn.Parameter]) -> list[torch.Tensor]
     """d loss / d params, averaged over the ranks under a mesh; a
     parameter the loss does not reach gets zeros, as a JAX gradient does
     (Adam's weight decay still moves it)."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+    with record_function("gan.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
 
 def _apply(state: GANTrainState, names, grads: list[torch.Tensor]) -> None:
     """One optimizer step for each named net with the given gradients."""
     it = iter(grads)
-    for name in names:
-        params = list(state.nets[name].parameters())
-        for p in params:
-            p.grad = next(it)
-        state.optims[name].step()
-        for p in params:
-            p.grad = None
+    with record_function("gan.optimizer"):
+        for name in names:
+            params = list(state.nets[name].parameters())
+            for p in params:
+                p.grad = next(it)
+            state.optims[name].step()
+            for p in params:
+                p.grad = None
 
 
 def make_train_step(
@@ -223,7 +234,7 @@ def make_train_step(
         metrics: dict[str, torch.Tensor] = {}
 
         # Frozen camera + privacy heatmaps (solver.py:144-147).
-        with torch.no_grad():
+        with torch.no_grad(), record_function("gan.frozen"):
             if "x_priv" in b:
                 x_real_hwc = b["x_priv"]
             else:
@@ -264,17 +275,20 @@ def make_train_step(
             metrics.update({f"D/{tag}_real": loss_real.detach(), f"D/{tag}_fake": loss_fake.detach(),
                             f"D/{tag}_reg": reg.detach()})
 
-        with torch.no_grad():
-            s_lat = mapn(z_trg, y_trg)
-        d_step("latent", s_lat)
-        with torch.no_grad():
-            s_ref = senc(x_ref, y_trg)
-        d_step("ref", s_ref)
+        with record_function("gan.d_latent"):
+            with torch.no_grad():
+                s_lat = mapn(z_trg, y_trg)
+            d_step("latent", s_lat)
+        with record_function("gan.d_ref"):
+            with torch.no_grad():
+                s_ref = senc(x_ref, y_trg)
+            d_step("ref", s_ref)
 
         # --- G steps (compute_g_loss, solver.py:322-364) ---
         def flow_term(x_fake):
-            flow = flow_fn(x_src * mask_org * 255.0, _nhwc(x_fake) * mask_org * 255.0)
-            return flow * lc.lambda_flow
+            with record_function("gan.flow"):
+                flow = flow_fn(x_src * mask_org * 255.0, _nhwc(x_fake) * mask_org * 255.0)
+                return flow * lc.lambda_flow
 
         def g_loss(s_trg, s_trg2, s_org):
             x_fake = gen(x_real, s_trg, masks)
@@ -291,44 +305,47 @@ def make_train_step(
             return loss, aux, x_fake
 
         # Latent styles: updates G, the mapping network and the style encoder.
-        names = ("generator", "mapping_network", "style_encoder")
-        params = _train_only(nets, names)
-        s_trg = mapn(z_trg, y_trg)
-        with torch.no_grad():
-            s_trg2 = mapn(z_trg2, y_trg)
-        loss, aux, x_fake = g_loss(s_trg, s_trg2, senc(x_real, y_src))
-        if flow_fn is not None:
-            aux["flow"] = flow_term(x_fake)
-            loss = loss + aux["flow"]
-        if lc.lambda_heatmap:
-            # Heatmap L1: value only (both sides no-grad in the reference).
+        with record_function("gan.g_latent"):
+            names = ("generator", "mapping_network", "style_encoder")
+            params = _train_only(nets, names)
+            s_trg = mapn(z_trg, y_trg)
             with torch.no_grad():
-                mf = get_heatmap(frozen.fan, _nhwc(x_fake), privacy=False, input_size=fan_size)[0]
-                aux["heatmap_l1"] = torch.mean(torch.abs(mf - priv[0])) * lc.lambda_heatmap
-            loss = loss + aux["heatmap_l1"]
-        grads = hook("G/latent", names, _grads(loss, params))
-        _apply(state, names, grads)
-        metrics.update({f"G/latent_{k}": v.detach() for k, v in aux.items()})
+                s_trg2 = mapn(z_trg2, y_trg)
+            loss, aux, x_fake = g_loss(s_trg, s_trg2, senc(x_real, y_src))
+            if flow_fn is not None:
+                aux["flow"] = flow_term(x_fake)
+                loss = loss + aux["flow"]
+            if lc.lambda_heatmap:
+                # Heatmap L1: value only (both sides no-grad in the reference).
+                with torch.no_grad():
+                    mf = get_heatmap(frozen.fan, _nhwc(x_fake), privacy=False, input_size=fan_size)[0]
+                    aux["heatmap_l1"] = torch.mean(torch.abs(mf - priv[0])) * lc.lambda_heatmap
+                loss = loss + aux["heatmap_l1"]
+            grads = hook("G/latent", names, _grads(loss, params))
+            _apply(state, names, grads)
+            metrics.update({f"G/latent_{k}": v.detach() for k, v in aux.items()})
 
         # Reference styles: updates G only.
-        params = _train_only(nets, ("generator",))
-        with torch.no_grad():
-            s_trg, s_trg2, s_org = senc(x_ref, y_trg), senc(x_ref2, y_trg), senc(x_real, y_src)
-        loss, aux, x_fake = g_loss(s_trg, s_trg2, s_org)
-        if lpips_fn is not None:
-            aux["lpips"] = torch.abs(lpips_fn(b["x_ref"], _nhwc(x_fake))) * lc.lambda_lpips
-            loss = loss + aux["lpips"]
-        if flow_fn is not None:
-            aux["flow"] = flow_term(x_fake)
-            loss = loss + aux["flow"]
-        grads = hook("G/ref", ("generator",), _grads(loss, params))
-        _apply(state, ("generator",), grads)
-        metrics.update({f"G/ref_{k}": v.detach() for k, v in aux.items()})
-        _train_only(nets, GAN_NETS)
+        with record_function("gan.g_ref"):
+            params = _train_only(nets, ("generator",))
+            with torch.no_grad():
+                s_trg, s_trg2, s_org = senc(x_ref, y_trg), senc(x_ref2, y_trg), senc(x_real, y_src)
+            loss, aux, x_fake = g_loss(s_trg, s_trg2, s_org)
+            if lpips_fn is not None:
+                with record_function("gan.lpips"):
+                    aux["lpips"] = torch.abs(lpips_fn(b["x_ref"], _nhwc(x_fake))) * lc.lambda_lpips
+                loss = loss + aux["lpips"]
+            if flow_fn is not None:
+                aux["flow"] = flow_term(x_fake)
+                loss = loss + aux["flow"]
+            grads = hook("G/ref", ("generator",), _grads(loss, params))
+            _apply(state, ("generator",), grads)
+            metrics.update({f"G/ref_{k}": v.detach() for k, v in aux.items()})
+            _train_only(nets, GAN_NETS)
 
         # --- EMA (solver.py:187-189, 367-369) ---
         beta = cfg.train.ema_beta
-        with torch.no_grad():
+        with torch.no_grad(), record_function("gan.ema"):
             for name in EMA_NETS:
                 for e, p in zip(state.ema[name].parameters(), nets[name].parameters()):
                     e.copy_(p + beta * (e - p))

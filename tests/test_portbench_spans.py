@@ -15,6 +15,12 @@ RELEASE = ["deid.camera_ms.batch", "deid.fan_ms.batch", "deid.style_ms.batch", "
            "deid.decode_ms.batch", "serve.output_ms.batch", "serve.host_ms.batch", "serve.drain_wait_ms.batch",
            "serve.idle_ms.batch", "serve.copy_ready_pct.batch"]
 CAPTION = ["caption.decoder_idle_ms.step", "caption.backward_idle_ms.step", "caption.optimizer_idle_ms.step"]
+GAN = ["gan.backward_idle_ms.step", "gan.flow_ms.step", "gan.backward_ms.step"]
+# The GAN cell's share of the peak: read from the whole trace, not a span.
+GAN_SHARES = ["mfu.gan_step"]
+# The cells whose traced runs each reader reads.
+CELL = {**dict.fromkeys(RELEASE, ["deid256-release"]), **dict.fromkeys(CAPTION, ["caption-train"]),
+        **dict.fromkeys(GAN + GAN_SHARES, ["deid256-train"]), "device.idle.step": ["caption-train", "deid256-train"]}
 MAIN, OTHER = 1, 2
 
 
@@ -31,12 +37,16 @@ def _on_device(name, start_ms, end_ms):
 
 def _trace(events, device_ms):
     """A stand-in ``Trace``: the window 0-100 ms on the main thread and
-    device activity (clipped to the window, as ``Trace.device`` gives it)."""
+    device activity (clipped to the window, as ``Trace.device`` gives it);
+    its ``span_ms`` charges 30 ms of device time to autograd's engine
+    where the program's ranges are there."""
     evs = [_event(WINDOW, 0, 100)] + events
     prof = types.SimpleNamespace(profiler=types.SimpleNamespace(kineto_results=types.SimpleNamespace(
         events=lambda: evs)))
+    busy = spans.overlap_ns([(0, 100 * MS)], [(s * MS, t * MS) for s, t in device_ms]) / 1e9
     return types.SimpleNamespace(window=(0, 100 * MS), device=[(s * MS, t * MS, "k") for s, t in device_ms],
-                                 prof=prof)
+                                 prof=prof, window_s=0.1, busy_s=busy,
+                                 span_ms=lambda names: {"backward": 30.0} if events and device_ms else {})
 
 
 # Device busy 0-5, 20-40 (two overlapping kernels), 70-80: idle 5-20, 40-70, 80-100.
@@ -63,6 +73,11 @@ PROGRAM = [
     _on_device("deid.cast", 75, 76),  # 1
     _on_device("serve.quantize", 76, 77),  # 1
     _on_device("serve.drain", 77, 90),  # busy to 80: 3
+    _event("gan.backward", 30, 60),  # idle 40-60: 20
+    _event("gan.backward", 0, 100, thread=OTHER),
+    _event("gan.flow", 0, 100),  # a host range: not the device-side copy
+    _on_device("gan.flow", 20, 30),  # 10
+    _on_device("gan.flow", 75, 85),  # busy to 80: 5
 ]
 COUNTERS = dict(batches_dispatched=2, assemble_s=0.001, upload_s=0.002, launch_s=0.005, drain_wait_s=0.03,
                 copies_ready=1)
@@ -72,12 +87,16 @@ WANT = {
     "deid.decode_ms.batch": 6.5, "serve.output_ms.batch": 2.5, "serve.host_ms.batch": 4.0,
     "serve.drain_wait_ms.batch": 15.0, "serve.idle_ms.batch": 25.0, "serve.copy_ready_pct.batch": 50.0,
     "caption.decoder_idle_ms.step": 3.0, "caption.backward_idle_ms.step": 8.0, "caption.optimizer_idle_ms.step": 2.0,
+    "gan.backward_idle_ms.step": 4.0, "gan.flow_ms.step": 3.0, "gan.backward_ms.step": 6.0,
+    # 5 steps of 989 GFLOP in 0.1 s at 989 TFLOP/s; 35 of 100 ms busy.
+    "mfu.gan_step": 5.0, "device.idle.step": 65.0,
 }
 
 
 def _ctx(trace, batches=2, steps=5, counters=COUNTERS):
     return types.SimpleNamespace(trace=trace, res={"counters": dict(counters, batches_dispatched=batches),
-                                                   "steps": steps})
+                                                   "steps": steps},
+                                 work={"flops_per_step": 989e9, "spans": ("gan.d_latent",)})
 
 
 def test_overlap_merges_the_ranges_and_splits_at_every_edge():
@@ -106,16 +125,35 @@ def test_stage_device_ms_sum_within_the_busy_time():
     assert total == pytest.approx(35.0 / 2) and total <= 45.0 / 2  # busy: 45 ms in 2 batches
 
 
-@pytest.mark.parametrize("name", RELEASE + CAPTION)
+@pytest.mark.parametrize("name", RELEASE + CAPTION + GAN + GAN_SHARES + ["device.idle.step"])
 def test_reader_matches_its_entry_and_reads_the_stand_in(name):
     entry = next(m for m in run.load_spec()["per_layer"] if m["name"] == name)
     reader = run.load_reader(name)
     assert (reader.LAYER, reader.MOVES, reader.SOURCE) == (entry["layer"], entry["moves"], entry["source"])
-    assert entry["workloads"] == ["deid256-release" if name in RELEASE else "caption-train"]
+    assert entry["workloads"] == CELL[name]
     assert reader.read(_ctx(_trace(PROGRAM, DEVICE))) == pytest.approx(WANT[name])
 
 
-@pytest.mark.parametrize("name", RELEASE + CAPTION)
+@pytest.mark.parametrize("name", GAN_SHARES)
+def test_share_reader_is_silent_without_steps_or_device_activity(name):
+    reader = run.load_reader(name)
+    assert reader.read(_ctx(_trace(PROGRAM, DEVICE), steps=0)) is None
+    assert reader.read(_ctx(_trace(PROGRAM, []))) is None
+
+
+def test_gan_ranges_split_at_the_window_and_nest_without_counting_twice():
+    """A nested range's device time inside its holder's is counted once,
+    and the GAN timeline is read once and kept on the context."""
+    from portbench import gan_spans
+
+    ctx = _ctx(_trace(PROGRAM + [_on_device("gan.g_latent", 10, 35)], DEVICE))
+    assert gan_spans.device_ms(ctx, ("gan.g_latent",)) == pytest.approx(15.0 / 5)
+    assert gan_spans.device_ms(ctx, ("gan.g_latent", "gan.flow")) == pytest.approx(20.0 / 5)
+    assert set(ctx.gan_timeline["device"]) == {"gan.flow", "gan.g_latent"}
+    assert list(ctx.gan_timeline["host"]) == ["gan.backward", "gan.flow"]
+
+
+@pytest.mark.parametrize("name", RELEASE + CAPTION + GAN)
 def test_reader_is_silent_without_a_denominator_or_its_spans(name):
     reader = run.load_reader(name)
     assert reader.read(_ctx(_trace(PROGRAM, DEVICE), batches=0, steps=0)) is None

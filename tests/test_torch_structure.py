@@ -306,3 +306,58 @@ def test_latency_histogram_keeps_each_quantile_within_its_bucket():
         exact = np.sort(lat)[math.ceil(q * lat.size) - 1]
         assert exact / half <= hist.quantile(q) <= exact * half, q
     assert hist.max == lat.max() and hist.quantile(0.5) <= hist.quantile(0.99) <= hist.quantile(1.0) <= hist.max
+
+
+# Each ``gan.*`` range of one GAN train step, how often it opens, and the
+# ranges it must lie inside (``None``: at the top of the step, in order).
+GAN_RANGES = {
+    "gan.frozen": (1, None), "gan.d_latent": (1, None), "gan.d_ref": (1, None), "gan.g_latent": (1, None),
+    "gan.g_ref": (1, None), "gan.ema": (1, None),
+    "gan.backward": (4, ("gan.d_latent", "gan.d_ref", "gan.g_latent", "gan.g_ref")),
+    "gan.optimizer": (4, ("gan.d_latent", "gan.d_ref", "gan.g_latent", "gan.g_ref")),
+    "gan.flow": (2, ("gan.g_latent", "gan.g_ref")),
+    "gan.lpips": (1, ("gan.g_ref",)),
+}
+
+
+def test_gan_step_opens_every_range_once_a_sub_step_nested_as_named():
+    """A profiled CPU train step of ``train/gan.py`` (LPIPS and a one-step
+    flow loss on): the frozen nets, the four sub-steps and the EMA each
+    in one range, in that order; one ``gan.backward`` and one
+    ``gan.optimizer`` inside each sub-step, ``gan.flow`` inside each
+    generator sub-step, ``gan.lpips`` inside the reference-style one."""
+    from ppvision_tpu_torch.config import CameraConfig, FaceDeIdConfig, ModelConfig, PathsConfig, TrainConfig
+    from ppvision_tpu_torch.train.aux_losses import build_flow_fn, build_lpips_fn
+    from ppvision_tpu_torch.train.gan import init_gan, make_train_step
+    from ppvision_tpu_torch.train.pretrained import load_frozen_nets
+
+    cfg = FaceDeIdConfig(model=ModelConfig(img_size=32, fan_input_size=64, max_conv_dim=32, style_dim=8,
+                                           compute_dtype="float32"),
+                         camera=CameraConfig(n=32, zernike_terms=16), train=TrainConfig(flow_iters=1),
+                         paths=PathsConfig(wing_path="", camera_ckpt=""))
+    state = init_gan(0, cfg, "cpu")
+    frozen = load_frozen_nets(cfg, 1, "cpu")
+    lpips_fn, _ = build_lpips_fn(None, 2, "cpu")
+    flow_fn, _ = build_flow_fn(None, 3, iters=1, corr_levels=2, corr_radius=2, device="cpu")
+    step = make_train_step(cfg, lpips_fn, flow_fn)
+    rng = np.random.default_rng(0)
+    img = lambda: torch.from_numpy(rng.random((2, 32, 32, 3)).astype(np.float32))  # noqa: E731
+    batch = dict(x_src=img(), x_ref=img(), x_ref2=img(), y_src=torch.tensor([0, 1]), y_ref=torch.tensor([1, 0]),
+                 z_trg=torch.randn(2, 16), z_trg2=torch.randn(2, 16))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, frozen, batch)
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("gan."):
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert {k: len(v) for k, v in ranges.items()} == {k: n for k, (n, _) in GAN_RANGES.items()}
+    top = [ranges[k][0] for k, (_, within) in GAN_RANGES.items() if within is None]
+    assert all(a[1] <= b[0] for a, b in zip(top, top[1:]))
+    for name, (n, within) in GAN_RANGES.items():
+        if within is None:
+            continue
+        holders = [ranges[w][0] for w in within]
+        for s, t in ranges[name]:
+            assert sum(a <= s and t <= b for a, b in holders) == 1, name
+        # One in each of the ranges that hold it.
+        assert all(sum(a <= s and t <= b for s, t in ranges[name]) == n // len(within) for a, b in holders), name
