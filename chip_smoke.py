@@ -24,14 +24,18 @@ What it does, in order; any failure raises and exits non-zero:
    levels and at a 64^2 map with coords spread over all of it, with its
    device microseconds and bound at each; two instats, two denseblock
    and two corr calls must agree bit for bit; ptxas may not have
-   serialized any wgmma (C7513, C7515);
+   serialized any wgmma (C7513, C7515); the norm apply, both variants,
+   byte for byte against the eager composite at every shape either path
+   and the release benchmark's B = 32 give it, timed at the release
+   shapes and at one shape of the de-id, video and train path each;
 4. builds the 128x128 full-width configuration with seeded random
    weights and serves a few requests through ``DeIdServer`` (batch 8,
    R = 10 styles), with every launch count set to 0 just before and read
    just after: each of the four de-id kernels must have run, conv3x3
-   exactly 93, instats 145 and denseblock 15 times a step, each instats
-   and denseblock shape as often as ``INSTATS_SHAPES`` and
-   ``DENSEBLOCK_SHAPES`` say; prints how many instats inputs had to be
+   exactly 93, instats 145, denseblock 15 and the norm apply 142 times a
+   step (no composite call), each instats, denseblock and norm-apply
+   shape as often as ``INSTATS_SHAPES``, ``DENSEBLOCK_SHAPES`` and
+   ``NORM_APPLY_SHAPES`` say; prints how many instats inputs had to be
    copied to be contiguous;
 5. holds a B=2, R=2 GPU run against the port's own CPU run on the same
    weights and inputs (float32 and bfloat16 compute);
@@ -44,8 +48,8 @@ What it does, in order; any failure raises and exits non-zero:
    on 8 sources and 2 references, and ``flow_consistency`` over the 30
    frame pairs in one RAFT call; launch counts set to 0 just before and
    read just after: all five kernels must have run, the correlation
-   kernel 4 levels x 12 iterations = 48 times; every instats and
-   denseblock shape of both paths must be one that step 3 checked;
+   kernel 4 levels x 12 iterations = 48 times; every instats, denseblock
+   and norm-apply shape of both paths must be one that step 3 checked;
    instats' and corr's input copies; then the same phase again under
    ``torch.profiler``: its device busy milliseconds and instats' and
    denseblock's shares of them;
@@ -66,7 +70,7 @@ What it does, in order; any failure raises and exits non-zero:
    (the counts set to 0 before each step), checks that every loss is
    finite, every net moved and each EMA less than its net, that conv3x3,
    instats, fftconv and denseblock launched in every step, and that no
-   conv3x3, instats or denseblock shape went unchecked; one more step
+   conv3x3, instats, denseblock or norm-apply shape went unchecked; one more step
    under ``torch.profiler`` for the device's busy share and a breakdown;
 12. one 64x64 train step on the card against the port's CPU path, in f32
    and in bf16;
@@ -75,7 +79,8 @@ What it does, in order; any failure raises and exits non-zero:
    the f64 plain version, outputs bit for bit against the CPU path, and
    their times beside the exact path's convs and the int8 bound;
 14. the int8 served run (``quant_decode=True``, 128x128 full width,
-   batch 8, R = 10): launch counts (conv3x3 13 a step), the int8 output
+   batch 8, R = 10): launch counts (conv3x3 13, the norm apply 142 a
+   step), the int8 output
    within (1e-5, 0.25) of the exact one, its quality gates against the
    exact one (SSIM > 0.9, face-ID cosine >= 0.98; ``int8_gates``), and
    the img/s of both, labelled;
@@ -90,7 +95,8 @@ What it does, in order; any failure raises and exits non-zero:
    AlexNet), 2 domains x 16 images, batch 8, 10 outputs a source: latent
    mode, reference mode and latent mode with the aligned face-ID embed,
    launch counts set to 0 just before each and read just after, no
-   conv3x3, instats or denseblock shape that step 3 did not check; the
+   conv3x3, instats, denseblock or norm-apply shape that step 3 did not
+   check; the
    multi-output fakes against a per-style ``deid_from_latent`` loop, bit
    for bit (``eval_phase``).  Its FIDs (a host ``sqrtm`` each) run in
    worker processes during step 18; then every value is checked and each
@@ -466,6 +472,89 @@ def check_instats(torch, dev) -> list[dict]:
     return records
 
 
+# A norm apply follows every moment of ``INSTATS_SHAPES`` but the
+# encoder's skip means (one a served step at each of these), so its
+# shapes are those, with its launches a served step; besides, the
+# release benchmark's 256^2 Generator at B = 32 (its decode's six shapes,
+# 15 applies a decode, and the encoder's other three).
+SKIP_MEANS = {(8, 128, 128): 1, (8, 64, 256): 1, (8, 32, 512): 1}
+NORM_APPLY_SHAPES = {k: n - SKIP_MEANS.get(k, 0) for k, n in INSTATS_SHAPES.items()}
+NORM_APPLY_PER_STEP = sum(NORM_APPLY_SHAPES.values())  # 142
+RELEASE_B = 32
+RELEASE_DECODE_APPLIES = {
+    (RELEASE_B, 8, 512): 5, (RELEASE_B, 16, 512): 2, (RELEASE_B, 32, 512): 2, (RELEASE_B, 64, 256): 2,
+    (RELEASE_B, 128, 128): 2, (RELEASE_B, 256, 64): 2, (RELEASE_B, 128, 64): 0, (RELEASE_B, 64, 128): 0,
+    (RELEASE_B, 32, 256): 0,
+}
+
+
+def norm_apply_bound(x) -> tuple[float, str]:
+    b, c = x.shape[0], x.shape[1]
+    return bound(2 * x.element_size() * x.numel() + 4 * 4 * b * c, 15 * x.numel(), F32_FLOP_S)
+
+
+def check_norm_apply(torch, dev) -> list[dict]:
+    """The norm apply (``ops/instats.py::norm_apply``), both variants
+    (the encoder's affine IN, the decoder's AdaIN; each with the leaky
+    ReLU), at every shape of ``NORM_APPLY_SHAPES`` and
+    ``RELEASE_DECODE_APPLIES``: the same bytes as the eager composite.
+    At the release rows and at each path's largest shape of the de-id,
+    video and train batch, the kernel's time in a 20-call window and on
+    the device beside the composite's (its ``library_ms``) and the
+    bound, one line each, and the sums over a release decode's 15
+    applies; one record at each of the three path shapes."""
+    from ppvision_tpu_torch.ops.instats import instance_moments, norm_apply, norm_apply_ref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    slope = 0.2001953125
+    paths = {(SERVE_BATCH, 128, 128): "deid", (VIDEO_T, 256, 64): "video", (TRAIN_B, 256, 64): "train"}
+    records, decode = [], {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}
+    for b, h, c in [*NORM_APPLY_SHAPES, *RELEASE_DECODE_APPLIES]:
+        x = torch.randn((b, h, h, c), generator=g, device=dev, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+        m, m2 = instance_moments(x.permute(0, 2, 3, 1))
+        style = dict(style=(torch.randn((b, 2 * c), generator=g, device=dev) * 0.5).to(torch.bfloat16))
+        affine = dict(weight=1 + 0.5 * torch.randn(c, generator=g, device=dev),
+                      bias=0.5 * torch.randn(c, generator=g, device=dev))
+        for kw in (style, affine):
+            got = norm_apply(x, m, m2, 1e-5, slope, **kw).permute(0, 2, 3, 1).contiguous()
+            want = norm_apply_ref(x, m, m2, 1e-5, slope, **kw).permute(0, 2, 3, 1).contiguous()
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if bad:
+                raise AssertionError(f"norm_apply differs from the composite at {(b, h, c)}, {sorted(kw)}, "
+                                     f"in {bad} elements")
+            del got, want
+        path = paths.get((b, h, c))
+        if b != RELEASE_B and path is None:
+            print(f"norm_apply B={b} {h}x{h}x{c}: bytes equal")
+            continue
+
+        def kernel():
+            return norm_apply(x, m, m2, 1e-5, slope, **style)
+
+        def library():
+            return norm_apply_ref(x, m, m2, 1e-5, slope, **style)
+
+        row = dict(ms=cuda_ms(kernel), device_ms=device_us(kernel, "norm_apply_kernel") / 1e3,
+                   library_ms=cuda_ms(library))
+        bms, by = norm_apply_bound(x)
+        per_decode = RELEASE_DECODE_APPLIES.get((b, h, c), 0)
+        for k in decode:
+            decode[k] += per_decode * row[k]
+        print(f"norm_apply B={b} {h}x{h}x{c}: {row['ms']:.4f} ms, {row['device_ms'] * 1e3:.2f} us on the device "
+              f"(eager composite {row['library_ms']:.4f}, bound {bms:.4f} by {by}; {per_decode} a release "
+              f"decode); bytes equal")
+        if path is not None:
+            records.append(dict(
+                name="norm_apply", route="cuda", source="ppvision_tpu_torch/csrc/instats.cu",
+                replaces="none (XLA fused the glue)", max_abs_err=0.0, path=path,
+                ms=row["ms"], plain_ms=row["library_ms"], bound_ms=bms, bound_by=by,
+                library_ms=row["library_ms"], shape=[b, h, h, c], tolerance="byte for byte",
+            ))
+    print(f"norm_apply over a release decode's 15 applies at B = {RELEASE_B}: kernel {decode['ms']:.4f} ms, "
+          f"{decode['device_ms']:.4f} ms on the device, eager composite {decode['library_ms']:.4f} ms")
+    return records
+
+
 def conv3x3_bound(x, w) -> tuple[float, str]:
     b, h, wd, c = x.shape
     k = w.shape[-1]
@@ -641,32 +730,65 @@ def check_corr(torch, dev) -> tuple[dict, list[float]]:
 
 
 def record_shapes():
-    """Wrap the names ``models/stargan.py`` calls instats and conv3x3 by
-    and ``models/fan.py`` calls denseblock by, so that every call's (B, H,
-    W, C, dtype) is counted (conv3x3's with its K before the dtype);
-    returns ({kernel: counts}, undo)."""
+    """Wrap the names ``models/stargan.py`` calls instats, conv3x3 and
+    the norm apply by and ``models/fan.py`` calls denseblock by, so that
+    every call's (B, H, W, C, dtype) is counted (conv3x3's with its K
+    before the dtype; the norm apply's where it launched the kernel, its
+    NCHW input read as NHWC); returns ({kernel: counts}, undo).  Also
+    ``seen["norm_apply.calls"]``, read by :func:`norm_applies`: the
+    applies ``Generator.encode`` and ``decode`` make (two a residual
+    block, and ``to_rgb``'s), ``want`` as launches where the call takes
+    no gradient (grad off, or nothing among its input, style and weights
+    requires one) and as composite calls where it does, and the
+    launches and composite calls ``got``."""
     import collections
 
+    import torch
+
     from ppvision_tpu_torch.models import fan, stargan
+    from ppvision_tpu_torch.ops.instats import norm_apply
 
     names = {"instats": (stargan, "instance_moments"), "denseblock": (fan, "fused_dense_block"),
-             "conv3x3": (stargan, "conv3x3")}
-    seen = {k: collections.Counter() for k in names}
+             "conv3x3": (stargan, "conv3x3"), "norm_apply": (stargan, "norm_apply"),
+             "encode": (stargan.Generator, "encode"), "decode": (stargan.Generator, "decode")}
+    seen = {k: collections.Counter() for k in (*names, "norm_apply.calls") if k not in ("encode", "decode")}
+    calls = seen["norm_apply.calls"]
     inner = {k: getattr(mod, fn) for k, (mod, fn) in names.items()}
 
     def spy(kernel):
-        def call(x, *args):
+        def call(x, *args, **kw):
             shape = tuple(x.shape)
             if kernel == "conv3x3":
                 w = args[-1] if args[-1] is not None else args[0]
                 shape += (w.shape[2] if w.ndim == 5 else w.shape[-1],)
-            seen[kernel][(*shape, str(x.dtype).removeprefix("torch."))] += 1
-            return inner[kernel](x, *args)
+            if kernel != "norm_apply":
+                seen[kernel][(*shape, str(x.dtype).removeprefix("torch."))] += 1
+                return inner[kernel](x, *args, **kw)
+            before = (norm_apply.launches, norm_apply.eager)
+            out = inner[kernel](x, *args, **kw)
+            launched, eager = norm_apply.launches - before[0], norm_apply.eager - before[1]
+            calls["got", "launches"] += launched
+            calls["got", "eager"] += eager
+            if launched:
+                b, c, h, w = shape
+                seen[kernel][(b, h, w, c, str(x.dtype).removeprefix("torch."))] += 1
+            return out
+
+        return call
+
+    def half(name):
+        def call(gen, x, *args, **kw):
+            blocks = gen._modules[name]
+            n = 2 * sum(getattr(blk, "normalize", True) for blk in blocks) + (name == "decode")
+            inputs = [x, args[0]] if name == "decode" else [x]
+            grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*inputs, *gen.parameters()))
+            calls["want", "eager" if grad else "launches"] += n
+            return inner[name](gen, x, *args, **kw)
 
         return call
 
     for k, (mod, fn) in names.items():
-        setattr(mod, fn, spy(k))
+        setattr(mod, fn, half(k) if k in ("encode", "decode") else spy(k))
 
     def undo():
         for k, (mod, fn) in names.items():
@@ -675,14 +797,27 @@ def record_shapes():
     return seen, undo
 
 
+def norm_applies(seen, what: str) -> tuple[int, int]:
+    """The norm applies of ``seen``'s run, (launches, composite calls):
+    the kernel must have run exactly where the Generator took no
+    gradient, and the composite exactly where it took one."""
+    calls = seen["norm_apply.calls"]
+    got = (calls["got", "launches"], calls["got", "eager"])
+    want = (calls["want", "launches"], calls["want", "eager"])
+    if got != want or not any(want):
+        raise AssertionError(f"{what}: norm_apply launched, ran the composite {got} times, not {want}")
+    return got
+
+
 # The shape tables the spies' counts are held to: (B, H, C[, K]) -> launches a step.
-SHAPE_TABLES = {"instats": INSTATS_SHAPES, "denseblock": DENSEBLOCK_SHAPES, "conv3x3": CONV3X3_SHAPES}
+SHAPE_TABLES = {"instats": INSTATS_SHAPES, "denseblock": DENSEBLOCK_SHAPES, "conv3x3": CONV3X3_SHAPES,
+                "norm_apply": NORM_APPLY_SHAPES}
 
 
-def unchecked_shapes(seen, kernels=("instats", "denseblock")) -> list:
+def unchecked_shapes(seen, kernels=("instats", "denseblock", "norm_apply")) -> list:
     """The shapes in ``seen`` of ``kernels`` that their checks
-    (``check_instats``, ``check_denseblock``, ``check_conv3x3``) did not
-    check."""
+    (``check_instats``, ``check_denseblock``, ``check_conv3x3``,
+    ``check_norm_apply``) did not check."""
     return [(kernel, k) for kernel in kernels for k in seen[kernel]
             if k[-1] != "bfloat16" or k[1] != k[2] or (k[0], k[1], *k[3:-1]) not in SHAPE_TABLES[kernel]]
 
@@ -723,8 +858,10 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     wall = time.perf_counter() - t0
     undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"served {len(outs)} requests in {wall:.3f} s; launches {launches}; "
-          f"instats input copies {kernels['instats'].copies}; stats {server.stats()}")
+    applies = norm_applies(seen, "the served run")
+    launches["norm_apply"] = applies[0]
+    print(f"served {len(outs)} requests in {wall:.3f} s; launches {launches}; norm_apply composite calls "
+          f"{applies[1]}; instats input copies {kernels['instats'].copies}; stats {server.stats()}")
     if len(outs) != len(requests):
         raise AssertionError(f"{len(outs)} outputs for {len(requests)} requests")
     for o in outs:
@@ -734,10 +871,13 @@ def serve_main_path(torch, kernels, deid_kernels) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the de-id path: {missing}")
     steps = -(-len(requests) // SERVE_BATCH)
+    if applies != (steps * NORM_APPLY_PER_STEP, 0):
+        raise AssertionError(f"norm_apply launched, eager {applies} over {steps} served steps, "
+                             f"not {NORM_APPLY_PER_STEP} launches a step and no eager call")
     if launches["conv3x3"] != steps * CONV3X3_PER_STEP:
         raise AssertionError(f"conv3x3 launched {launches['conv3x3']} times over {steps} served steps, "
                              f"not {CONV3X3_PER_STEP} a step")
-    for kernel in ("instats", "denseblock"):
+    for kernel in ("instats", "denseblock", "norm_apply"):
         table = SHAPE_TABLES[kernel]
         per_step = sum(table.values())
         if launches[kernel] != steps * per_step:
@@ -850,6 +990,7 @@ def video_path(torch, kernels) -> dict:
     secs = time.perf_counter() - t0
     undo()
     launches = {name: fn.launches for name, fn in kernels.items()}
+    launches["norm_apply"] = norm_applies(seen, "the video phase")[0]
     print(f"video phase: {secs:.2f} s; flow_consistency_epe {score:.6f}; launches {launches}; "
           f"instats input copies {kernels['instats'].copies}; corr input copies {kernels['corr'].copies}; "
           f"shapes {({k: dict(v) for k, v in seen.items()})}; "
@@ -1094,9 +1235,14 @@ def train_path(torch, kernels, card: str) -> dict:
             raise AssertionError(f"train step {i}: kernels not launched: {missing}")
     undo()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train shapes {({k: dict(v) for k, v in seen.items()})}; instats input copies "
-          f"{kernels['instats'].copies}; peak device memory {peak_gib:.2f} GiB")
-    unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock"))
+    applies = norm_applies(seen, "the train phase")
+    totals["norm_apply"] = applies[0]
+    print(f"train shapes {({k: dict(v) for k, v in seen.items()})}; norm_apply launches, composite calls "
+          f"{applies} (no-grad forwards, autograd's); instats input copies {kernels['instats'].copies}; "
+          f"peak device memory {peak_gib:.2f} GiB")
+    if not applies[1]:
+        raise AssertionError("the train phase ran no norm under autograd")
+    unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock", "norm_apply"))
     if unchecked:
         raise AssertionError(f"the train phase gave kernel shapes that were not checked: {unchecked}")
     for name, params in before.items():
@@ -1153,8 +1299,9 @@ def train_path(torch, kernels, card: str) -> dict:
 
 def plain_kernels(only=None):
     """Point the names the modules call the four de-id kernels by at
-    their plain versions (only the kernel named ``only``, where given);
-    returns undo."""
+    their plain versions (only the kernel named ``only``, where given;
+    instats' two entry points, the moments and the norm apply, go
+    together); returns undo."""
     from ppvision_tpu_torch.models import fan, stargan
     from ppvision_tpu_torch.ops import denseblock, fftconv, instats, winograd
     from ppvision_tpu_torch.optics import fourier
@@ -1165,10 +1312,12 @@ def plain_kernels(only=None):
     def dense(x, k1, k2, k3, *bn):
         return denseblock._plain(x, k1, k2, k3, *denseblock._flat_bn(bn))
 
-    names = {"conv3x3": (stargan, "conv3x3", conv), "instats": (stargan, "instance_moments", instats._moments_ref),
-             "denseblock": (fan, "fused_dense_block", dense),
-             "fftconv": (fourier, "fftconv_circular", fftconv.fftconv_circular_ref)}
-    chosen = [names[only]] if only is not None else list(names.values())
+    names = {"conv3x3": [(stargan, "conv3x3", conv)],
+             "instats": [(stargan, "instance_moments", instats._moments_ref),
+                         (stargan, "norm_apply", instats.norm_apply_ref)],
+             "denseblock": [(fan, "fused_dense_block", dense)],
+             "fftconv": [(fourier, "fftconv_circular", fftconv.fftconv_circular_ref)]}
+    chosen = names[only] if only is not None else [n for group in names.values() for n in group]
     inner = [(mod, name, getattr(mod, name)) for mod, name, _ in chosen]
     for mod, name, fn in chosen:
         setattr(mod, name, fn)
@@ -1466,14 +1615,17 @@ def serve_int8(torch, kernels, card: str) -> dict:
     counted = {**kernels, "int8_conv": quant.int8_conv_acc, "int8_up2x": quant.int8_up2x_acc}
     for fn in counted.values():
         fn.launches = 0
+    seen, undo = record_shapes()
     outs = list(server.serve(requests))
+    undo()
     launches = {name: fn.launches for name, fn in counted.items()}
+    launches["norm_apply"] = norm_applies(seen, "the int8 served run")[0]
     steps = -(-len(requests) // SERVE_BATCH)
     print(f"int8 served {len(outs)} requests; launches {launches}")
     shapes = int8_decode_shapes()
     want = dict(
         conv3x3=steps * CONV3X3_INT8_PER_STEP, instats=steps * INSTATS_PER_STEP,
-        denseblock=steps * DENSEBLOCK_PER_STEP,
+        denseblock=steps * DENSEBLOCK_PER_STEP, norm_apply=steps * NORM_APPLY_PER_STEP,
         int8_conv=steps * sum(n for k, n in shapes.items() if not k[-1]),
         int8_up2x=steps * sum(n for k, n in shapes.items() if k[-1]),
     )
@@ -1907,8 +2059,10 @@ def eval_phase(torch, kernels, card: str):
                 raise AssertionError(f"eval {tag}: kernels not launched {missing}")
             out[tag] = dict(mode=mode, results=res, seconds=total, parts=dict(secs), launches=launches)
         undo()
-        print(f"eval shapes {({k: dict(v) for k, v in seen.items()})}")
-        unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock"))
+        applies = norm_applies(seen, "the eval phase")
+        print(f"eval shapes {({k: dict(v) for k, v in seen.items()})}; norm_apply launches, composite calls "
+              f"{applies}")
+        unchecked = unchecked_shapes(seen, ("conv3x3", "instats", "denseblock", "norm_apply"))
         if unchecked:
             raise AssertionError(f"the eval phase gave kernel shapes that were not checked: {unchecked}")
         # One source batch: the eval's multi-output path against a loop of
@@ -3184,8 +3338,9 @@ def main(argv=None) -> int:
     corr_record, corr_bounds = check_corr(torch, dev)
     records = [*check_fftconv(torch, dev), *check_denseblock(torch, dev),
                *check_instats(torch, dev), *check_conv3x3(torch, dev), corr_record]
+    norm_records = check_norm_apply(torch, dev)
     phase_s["kernel_checks"] = time.perf_counter() - t0
-    for r in records:
+    for r in records + norm_records:
         print(f"{r['name']} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
     launches = phase("serve", serve_main_path, torch, KERNELS, DEID_KERNELS)
@@ -3217,7 +3372,7 @@ def main(argv=None) -> int:
     # latent run.
     runs = {"deid": launches, "video": video["launches"], "train": train["launches"],
             "eval": evals["latent"]["launches"]}
-    for r in records:
+    for r in records + norm_records:
         r["launches"] = runs[r["path"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
@@ -3227,7 +3382,7 @@ def main(argv=None) -> int:
         r["launches"] = int8_launches["int8_up2x" if r["name"].endswith("up2x") else "int8_conv"]
     print(json.dumps({"int8_products": [{k: r[k] for k in keys} for r in int8_records], "card": card}))
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records + norm_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -13,12 +13,17 @@ cast to the compute dtype at use; convs and dense layers round their
 output to the compute dtype before the bias add; InstanceNorm takes f32
 moments and casts back; AdaIN's gamma/beta and the residual scaling run
 in the compute dtype, with Python scalars rounded to it first as JAX's
-weak types do.  Two kernels sit under these modules on CUDA: every
+weak types do.  Kernels sit under these modules on CUDA: every
 stride-1 3x3 conv with channels % 16 = 0 in bf16 runs
 :func:`ops.winograd.conv3x3`, and every InstanceNorm/AdaIN moment and
 the encoder's skip mean run :func:`ops.instats.instance_moments`.
 Both carry gradients: their backward is the plain version's VJP, and
-conv3x3's is differentiable again (R1's gradient of a gradient).
+conv3x3's is differentiable again (R1's gradient of a gradient).  The
+norms then apply themselves, with the leaky ReLU that follows them in
+``ResBlk``, ``AdainResBlk`` and ``to_rgb``, through
+:func:`ops.instats.norm_apply`: one kernel pass in bf16 where no
+gradient is needed, byte for byte the eager composite it replaces,
+which runs wherever a gradient is taken.
 
 ``Generator(quant_decode=True)`` runs the decoder's 3x3 convs and
 nearest-up2x convs in int8 (``ops/quant.py``), the opt-in lossy serving
@@ -39,7 +44,7 @@ from torch import nn
 
 from ..ops.fusedconv import conv3x3_avgpool2x, conv3x3_nearest_up2x
 from ..ops.image import avg_pool_2x, resize_bilinear, upsample_nearest_2x
-from ..ops.instats import instance_moments
+from ..ops.instats import instance_moments, norm_apply
 from ..ops.quant import int8_conv, int8_conv3x3_nearest_up2x, quantize_up2x_weight, quantize_weight_per_oc
 from ..ops.winograd import conv3x3, conv3x3_supported, pack_conv3x3_weight
 from ..parallel.mesh import all_reduce_mean
@@ -181,23 +186,22 @@ def _quant_conv(x: torch.Tensor, conv: Conv, up: bool = False) -> torch.Tensor:
     return y + conv.bias.to(y.dtype)[:, None, None]
 
 
-class InstanceNorm(nn.InstanceNorm2d):
-    """Per-sample per-channel normalization over H, W with f32
-    statistics in the two-moment form (E[x], E[x^2]) and a biased
-    variance, as the JAX package and torch's InstanceNorm2d compute."""
+EPS = 1e-5  # every instance norm's
 
-    def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5):
-        super().__init__(num_features, eps=eps, affine=affine)
+
+class InstanceNorm(nn.InstanceNorm2d):
+    """Per-sample per-channel affine normalization over H, W with f32
+    statistics in the two-moment form (E[x], E[x^2]) and a biased
+    variance, as the JAX package and torch's InstanceNorm2d compute,
+    then the leaky ReLU that follows every such norm in the Generator,
+    in one call."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=EPS, affine=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, m2 = _moments_nchw(x)
-        mean, m2 = mean[:, :, None, None], m2[:, :, None, None]
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        var = torch.clamp_min(m2 - mean * mean, 0.0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        if self.affine:
-            y = y * self.weight[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return norm_apply(x, mean, m2, self.eps, _weak(0.2, x.dtype), self.weight, self.bias)
 
 
 class ResBlk(nn.Module):
@@ -224,34 +228,27 @@ class ResBlk(nn.Module):
             s = avg_pool_2x(s)
         if self.learned_sc:
             s = self.conv1x1(s)
-        r = x
-        if self.normalize:
-            r = self.norm1(r)
-        r = leaky_relu(r)
+        r = self.norm1(x) if self.normalize else leaky_relu(x)
         r = _resample_conv(r, self.conv1, "down") if self.downsample else self.conv1(r)
-        if self.normalize:
-            r = self.norm2(r)
-        r = leaky_relu(r)
+        r = self.norm2(r) if self.normalize else leaky_relu(r)
         r = self.conv2(r)
         return _res_scale(s, r)
 
 
 class AdaIN(nn.Module):
     """Style-modulated instance norm: (1 + gamma) * IN(x) + beta, with
-    gamma/beta from a dense layer in the compute dtype."""
+    gamma/beta from a dense layer in the compute dtype, then the leaky
+    ReLU that follows it, in one call."""
 
     def __init__(self, style_dim: int, num_features: int, dtype=None):
         super().__init__()
         self.compute_dtype = dtype
-        self.norm = InstanceNorm(num_features, affine=False)
         self.fc = nn.Linear(style_dim, num_features * 2)
 
     def forward(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         h = _dense(s, self.fc, self.compute_dtype)
-        gamma, beta = torch.chunk(h, 2, dim=1)
-        y = self.norm(x)
-        out = (1 + gamma[:, :, None, None]) * y + beta[:, :, None, None]
-        return out.to(x.dtype)
+        mean, m2 = _moments_nchw(x)
+        return norm_apply(x, mean, m2, EPS, _weak(0.2, x.dtype), style=h)
 
 
 class AdainResBlk(nn.Module):
@@ -274,12 +271,12 @@ class AdainResBlk(nn.Module):
             self.conv1x1 = Conv(dim_in, dim_out, 1, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-        r = leaky_relu(self.norm1(x, s))
+        r = self.norm1(x, s)
         if self.quant:
             r = _quant_conv(r, self.conv1, up=self.upsample)
         else:
             r = _resample_conv(r, self.conv1, "up") if self.upsample else self.conv1(r)
-        r = leaky_relu(self.norm2(r, s))
+        r = self.norm2(r, s)
         r = _quant_conv(r, self.conv2) if self.quant else self.conv2(r)
         if self.w_hpf == 0:
             sc = x
@@ -340,9 +337,9 @@ class Generator(nn.Module):
             for i in reversed(range(rn))
         ]
         self._modules["decode"] = nn.ModuleList(dec)
-        self.to_rgb = nn.Sequential(
-            InstanceNorm(dims[0]), nn.LeakyReLU(0.2), nn.Conv2d(dims[0], 3, 1)
-        )
+        # The norm applies the leaky ReLU; the empty slot keeps the
+        # conv's key (``to_rgb.2``) that the reference's layout gives.
+        self.to_rgb = nn.Sequential(InstanceNorm(dims[0]), nn.Identity(), nn.Conv2d(dims[0], 3, 1))
 
     def encode(self, x: torch.Tensor, masks=None):
         """Style-independent half: NCHW x -> (bottleneck z, ((size, hp), ...))."""
@@ -386,7 +383,7 @@ class Generator(nn.Module):
                     hp = hp.repeat(x.shape[0] // hp.shape[0], 1, 1, 1)
                 x = x + hp
         norm, _, conv = self.to_rgb
-        x = leaky_relu(norm(x))
+        x = norm(x)
         y = F.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
         return y.to(torch.promote_types(y.dtype, torch.float32))
 

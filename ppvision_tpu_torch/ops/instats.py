@@ -19,6 +19,13 @@ kernel leaves the tickets zeroed); the kernel allocates nothing.
 The kernel has no backward, as the Pallas kernel has none: a call that
 needs a gradient goes through :class:`MomentsFn`, whose backward is the
 plain version's VJP (``ppvision_tpu/ops/instats.py::_make``'s ``bwd``).
+
+``norm_apply(x, mean, m2, eps, slope, ...)`` applies the norm those
+moments give, with an affine or the AdaIN modulation, and the leaky
+ReLU that follows every norm of the Generator: on CUDA,
+for bf16 where no gradient is needed, one pass of the same build unit's
+second kernel; everywhere else :func:`norm_apply_ref`, the eager
+composite, whose bytes the kernel reproduces.
 """
 
 from __future__ import annotations
@@ -27,12 +34,17 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["MomentsFn", "instance_moments", "moments_vjp", "plan_split", "_moments_ref"]
+__all__ = ["MomentsFn", "instance_moments", "moments_vjp", "norm_apply", "norm_apply_ref", "plan_split",
+           "_moments_ref"]
 
-_SIGS = {"instance_moments": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
+_SIGS = {
+    "instance_moments": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "norm_apply": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+}
 
 SPREAD_BLOCKS = 128  # blocks the channel slices reach where they can: about one an SM
 FILL_BLOCKS = 2 * 132  # blocks the pixel chunks aim at: two for each of an H100's 132 SMs
@@ -173,3 +185,79 @@ def _kernel(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 instance_moments.launches = 0
 instance_moments.copies = 0
+
+
+def norm_apply_ref(x, mean, m2, eps: float, slope: float, weight=None, bias=None, style=None):
+    """The instance norm of NCHW ``x`` from its (B, C) moments ``mean``
+    and ``m2`` (E[x], E[x^2]), in the composite the Generator has always
+    run: in f32, ``(x - mean) * rsqrt(max(m2 - mean^2, 0) + eps)``, then
+    either ``* weight + bias``, cast to x's dtype, or, with ``style``
+    (the AdaIN dense layer's (B, 2C) output, gamma then beta), cast to
+    x's dtype and ``(1 + gamma) * y + beta`` in its dtype, cast to x's;
+    then the leaky ReLU of ``slope`` (as the op takes it:
+    ``models/stargan.py::leaky_relu`` rounds 0.2 to the dtype first).
+    The kernel's plain version."""
+    if (style is None) == (weight is None) or (weight is None) != (bias is None):
+        raise ValueError("norm_apply: give weight and bias, or style")
+    mean, m2 = mean[:, :, None, None], m2[:, :, None, None]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    var = torch.clamp_min(m2 - mean * mean, 0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if style is None:
+        y = (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
+    else:
+        gamma, beta = torch.chunk(style, 2, dim=1)
+        y = ((1 + gamma[:, :, None, None]) * y.to(x.dtype) + beta[:, :, None, None]).to(x.dtype)
+    return F.leaky_relu(y, slope)
+
+
+def norm_apply_takes(x, weight=None, bias=None, style=None) -> bool:
+    """Whether the kernel computes this call: bf16 ``x`` (and style)
+    whose pixels are whole 16-byte loads (C * 2 bytes a multiple of 16,
+    the NHWC memory 16-byte aligned), where no gradient is needed (grad
+    disabled, or nothing among x, the style and the parameters
+    requires it).  The device is the caller's test."""
+    if x.dtype != torch.bfloat16 or x.ndim != 4 or x.numel() == 0 or (x.shape[1] * 2) % 16:
+        return False
+    if style is not None and style.dtype != torch.bfloat16:
+        return False
+    if x.data_ptr() % 16:
+        return False
+    if torch.is_grad_enabled():
+        return not any(t is not None and t.requires_grad for t in (x, weight, bias, style))
+    return True
+
+
+def norm_apply(x, mean, m2, eps: float, slope: float, weight=None, bias=None, style=None):
+    """:func:`norm_apply_ref` of NCHW ``x`` (channels_last in the
+    Generator): on CUDA, where :func:`norm_apply_takes`, one launch of
+    the kernel, which returns its bytes (``norm_apply.launches`` counts
+    those calls); every other CUDA call runs the composite and counts in
+    ``norm_apply.eager``; CPU tensors run the composite."""
+    if x.device.type != "cuda":
+        return norm_apply_ref(x, mean, m2, eps, slope, weight, bias, style)
+    if not norm_apply_takes(x, weight, bias, style):
+        norm_apply.eager += 1
+        return norm_apply_ref(x, mean, m2, eps, slope, weight, bias, style)
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    b, h, w, c = xh.shape
+    shapes = {"mean": (mean, (b, c)), "m2": (m2, (b, c)), "weight": (weight, (c,)), "bias": (bias, (c,)),
+              "style": (style, (b, 2 * c))}
+    bad = [k for k, (t, want) in shapes.items() if t is not None and (t.shape != want or t.device != x.device)]
+    if bad or (style is None) == (weight is None) or (weight is None) != (bias is None):
+        what = bad or "weight and bias, or style,"
+        raise ValueError(f"norm_apply: {what} do not fit x {tuple(x.shape)} on {x.device}")
+    out = torch.empty_like(xh)
+    args = [xh, out, *(None if t is None else t.float().contiguous() for t in (mean, m2, weight, bias)),
+            None if style is None else style.contiguous()]
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    lib = _build.load("instats", _SIGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.norm_apply(*ptrs, b, h * w, c, eps, slope, stream)
+    _build.check(lib, err, "norm_apply")
+    norm_apply.launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+norm_apply.launches = 0
+norm_apply.eager = 0

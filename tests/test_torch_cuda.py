@@ -19,7 +19,7 @@ from ppvision_tpu_torch.ops.corr import _launch as _corr_launch
 from ppvision_tpu_torch.ops.corr import local_corr, local_corr_ref, plan_corr
 from ppvision_tpu_torch.ops.denseblock import dense_block_ref, fused_dense_block, pack_dense_bn
 from ppvision_tpu_torch.ops.fftconv import fftconv_circular, fftconv_circular_ref
-from ppvision_tpu_torch.ops.instats import _launch, _moments_ref, instance_moments
+from ppvision_tpu_torch.ops.instats import _launch, _moments_ref, instance_moments, norm_apply, norm_apply_ref
 from ppvision_tpu_torch.ops.winograd import conv3x3, conv3x3_ref, pack_conv3x3_weight
 
 pytestmark = pytest.mark.cuda
@@ -160,6 +160,129 @@ def test_moments_kernel_is_bitwise_repeatable(dev, shape):
     for _ in range(3):
         again = instance_moments(x)
         assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+# (B, H, C) of the norms the served 256^2 Generator applies: the
+# decode's six at B = 32 (8^2 x 512 ... 256^2 x 64, 15 applies a decode)
+# and the encoder's other three; the train cell's B = 4; odd sizes: one
+# 8-channel group, 33 groups (a pass of 256 threads leaves 25 idle) and
+# 512 groups (two channel passes).
+NORM_SHAPES = [(32, 8, 512), (32, 16, 512), (32, 32, 512), (32, 64, 256), (32, 128, 128), (32, 256, 64),
+               (32, 128, 64), (32, 64, 128), (32, 32, 256), (4, 256, 64), (4, 128, 128), (4, 8, 512),
+               (3, 5, 8), (2, 7, 264), (2, 4, 4096)]
+LEAKY = 0.2001953125  # 0.2 rounded to bf16, as models/stargan.py::leaky_relu takes it
+
+
+def _norm_args(dev, b, h, c, scale=1.0):
+    """NCHW channels_last bf16 x (channel 0 constant: variance 0, so the
+    clamp and eps decide), its kernel moments, and the two variants'
+    arguments: an affine pair, an AdaIN dense output."""
+    g = torch.Generator(device=dev).manual_seed(b * h + c)
+    x = torch.randn((b, h, h, c), generator=g, device=dev) * 3 + 1
+    x[..., 0] = 2.5
+    x = (x * scale).to(torch.bfloat16).permute(0, 3, 1, 2)
+    m, m2 = instance_moments(x.permute(0, 2, 3, 1))
+    affine = dict(weight=1 + 0.5 * torch.randn(c, generator=g, device=dev),
+                  bias=0.5 * torch.randn(c, generator=g, device=dev))
+    style = dict(style=(torch.randn((b, 2 * c), generator=g, device=dev) * 0.5).to(torch.bfloat16))
+    return x, m, m2, (affine, style)
+
+
+def _assert_same_bytes(got, want, what):
+    gi = got.permute(0, 2, 3, 1).contiguous().view(torch.int16)
+    wi = want.permute(0, 2, 3, 1).contiguous().view(torch.int16)
+    bad = (gi != wi).nonzero()
+    assert bad.numel() == 0, (what, bad.shape[0], bad[:4].tolist(),
+                              got.permute(0, 2, 3, 1)[tuple(bad[:4].T)].tolist(),
+                              want.permute(0, 2, 3, 1)[tuple(bad[:4].T)].tolist())
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_norm_apply_kernel_equals_the_composite_byte_for_byte(dev, shape):
+    """Each variant (affine, AdaIN), one launch each, the same bytes as
+    the eager composite."""
+    x, m, m2, variants = _norm_args(dev, *shape)
+    with torch.no_grad():
+        for kw in variants:
+            before = norm_apply.launches
+            got = norm_apply(x, m, m2, 1e-5, LEAKY, **kw)
+            assert norm_apply.launches == before + 1
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            _assert_same_bytes(got, norm_apply_ref(x, m, m2, 1e-5, LEAKY, **kw), (shape, sorted(kw)))
+
+
+@pytest.mark.parametrize("scale", [1e15, 3e-3])
+def test_norm_apply_kernel_at_large_and_small_magnitudes(dev, scale):
+    x, m, m2, variants = _norm_args(dev, 4, 32, 256, scale)
+    assert bool(torch.isfinite(m2).all())
+    with torch.no_grad():
+        for kw in variants:
+            _assert_same_bytes(norm_apply(x, m, m2, 1e-5, LEAKY, **kw),
+                               norm_apply_ref(x, m, m2, 1e-5, LEAKY, **kw), (scale, sorted(kw)))
+
+
+def _generator_256(dev):
+    """The served 256^2 Generator in bf16, seeded, its norms' affine
+    pairs drawn away from 1 and 0."""
+    from ppvision_tpu_torch.models import stargan
+
+    gen = stargan.init_params_(stargan.Generator(256, 64, 512, 1.0, dtype=torch.bfloat16), seed=0)
+    with torch.no_grad():
+        for mod in gen.modules():
+            if isinstance(mod, stargan.InstanceNorm):
+                mod.weight.normal_(1.0, 0.3)
+                mod.bias.normal_(0.0, 0.3)
+    return gen.to(dev)
+
+
+def test_generator_decode_applies_each_norm_in_one_launch(dev, monkeypatch):
+    """A no-grad decode of the served 256^2 Generator at B = 32 applies
+    its 15 norms in 15 kernel launches and no composite call, and its
+    output equals, byte for byte, the decode with the composite in the
+    kernel's place; under autograd with trainable weights the composite
+    runs all 15."""
+    from ppvision_tpu_torch.models import stargan
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = _generator_256(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn((32, 8, 8, 512), generator=g, device=dev).permute(0, 3, 1, 2)
+    s = torch.randn((32, 64), generator=g, device=dev)
+    with torch.no_grad():
+        counts = (norm_apply.launches, norm_apply.eager)
+        got = gen.decode(z, s)
+        assert (norm_apply.launches - counts[0], norm_apply.eager - counts[1]) == (15, 0)
+        monkeypatch.setattr(stargan, "norm_apply", norm_apply_ref)
+        want = gen.decode(z, s)
+        monkeypatch.setattr(stargan, "norm_apply", norm_apply)
+    assert torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+    with torch.enable_grad():
+        counts = (norm_apply.launches, norm_apply.eager)
+        out = gen.decode(z[:2], s[:2])
+        assert out.requires_grad
+        assert (norm_apply.launches - counts[0], norm_apply.eager - counts[1]) == (0, 15)
+
+
+def test_generator_forward_at_the_train_batch_equals_the_composite(dev, monkeypatch):
+    """The GAN step's no-grad forwards (the fakes of the D sub-steps):
+    ``Generator.forward`` at B = 4 with the high-pass skips, encoder and
+    decoder, launches the kernel for all 29 norms and gives the bytes of
+    the same forward with the composite in the kernel's place."""
+    from ppvision_tpu_torch.models import stargan
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = _generator_256(dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand((4, 256, 256, 3), generator=g, device=dev).permute(0, 3, 1, 2) * 2 - 1
+    masks = tuple(torch.rand((4, 1, 256, 256), generator=g, device=dev) for _ in range(2))
+    s = torch.randn((4, 64), generator=g, device=dev)
+    with torch.no_grad():
+        counts = (norm_apply.launches, norm_apply.eager)
+        got = gen(x, s, masks)
+        assert (norm_apply.launches - counts[0], norm_apply.eager - counts[1]) == (29, 0)
+        monkeypatch.setattr(stargan, "norm_apply", norm_apply_ref)
+        want = gen(x, s, masks)
+    assert torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
 
 
 # The paths' shapes, among them those whose tiles span images (8^2, 4^2)
@@ -303,6 +426,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     wide = torch.zeros((1, 8, 8, 516), device=dev)
     with pytest.raises(ValueError):
         local_corr(wide, wide, coords)  # C > 512
+    xn = torch.zeros((2, 16, 8, 8), dtype=torch.bfloat16, device=dev)
+    m = torch.zeros((2, 16), device=dev)
+    w, b = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    for bad in (dict(style=torch.zeros((2, 16), dtype=torch.bfloat16, device=dev)),  # not (B, 2C)
+                dict(weight=w),  # no bias
+                {},  # neither an affine nor a style
+                dict(weight=w, bias=b, style=torch.zeros((2, 32), dtype=torch.bfloat16, device=dev)),  # both
+                dict(weight=torch.ones(16), bias=torch.zeros(16))):  # on the host
+        with pytest.raises(ValueError):
+            norm_apply(xn, m, m, 1e-5, 0.2, **bad)
+    with pytest.raises(ValueError):
+        norm_apply(xn, m[:1], m, 1e-5, 0.2, weight=w, bias=b)
 
 
 def test_raft_matmul_conv_matches_cudnn(dev):

@@ -119,3 +119,199 @@ def test_reference_key_names():
     assert {k: v.shape for k, v in q["generator"].state_dict().items()} == {
         k: v.shape for k, v in m["generator"].state_dict().items()
     }
+
+
+# ---------------------------------------------------------------------------
+# The norm apply (ops/instats.py::norm_apply): the composite that the CPU,
+# f32/f64 and every autograd call run, held to the formulas the modules
+# computed before the norms and their leaky ReLUs became one call.
+# ---------------------------------------------------------------------------
+
+
+def _old_instance_norm(norm, x):
+    """``InstanceNorm.forward`` as it was, frozen here (``norm`` None:
+    the AdaIN's, without affine)."""
+    from ppvision_tpu_torch.models.stargan import _moments_nchw
+
+    mean, m2 = _moments_nchw(x)
+    mean, m2 = mean[:, :, None, None], m2[:, :, None, None]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    var = torch.clamp_min(m2 - mean * mean, 0.0)
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    if norm is not None:
+        y = y * norm.weight[:, None, None] + norm.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def _old_adain(adain, x, s):
+    """``AdaIN.forward`` as it was."""
+    from ppvision_tpu_torch.models.stargan import _dense
+
+    gamma, beta = torch.chunk(_dense(s, adain.fc, adain.compute_dtype), 2, dim=1)
+    y = _old_instance_norm(None, x)
+    return ((1 + gamma[:, :, None, None]) * y + beta[:, :, None, None]).to(x.dtype)
+
+
+def _old_resblk(blk, x):
+    """``ResBlk.forward`` as it was: the norm, then ``leaky_relu``."""
+    from ppvision_tpu_torch.models import stargan as sg
+
+    s = sg.avg_pool_2x(x) if blk.downsample else x
+    if blk.learned_sc:
+        s = blk.conv1x1(s)
+    r = sg.leaky_relu(_old_instance_norm(blk.norm1, x) if blk.normalize else x)
+    r = sg._resample_conv(r, blk.conv1, "down") if blk.downsample else blk.conv1(r)
+    r = sg.leaky_relu(_old_instance_norm(blk.norm2, r) if blk.normalize else r)
+    return sg._res_scale(s, blk.conv2(r))
+
+
+def _old_adain_resblk(blk, x, s):
+    """``AdainResBlk.forward`` as it was (exact convs)."""
+    from ppvision_tpu_torch.models import stargan as sg
+
+    r = sg.leaky_relu(_old_adain(blk.norm1, x, s))
+    r = sg._resample_conv(r, blk.conv1, "up") if blk.upsample else blk.conv1(r)
+    r = blk.conv2(sg.leaky_relu(_old_adain(blk.norm2, r, s)))
+    if blk.w_hpf == 0:
+        sc = blk.conv1x1(x) if blk.learned_sc else x
+        r = sg._res_scale(r, sg.upsample_nearest_2x(sc) if blk.upsample else sc)
+    return r
+
+
+def _old_to_rgb(gen, x):
+    """``Generator.decode``'s last lines as they were."""
+    from ppvision_tpu_torch.models import stargan as sg
+
+    norm, _, conv = gen.to_rgb
+    x = sg.leaky_relu(_old_instance_norm(norm, x))
+    y = torch.nn.functional.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
+    return y.to(torch.promote_types(y.dtype, torch.float32))
+
+
+def _norm_input(dtype, b=2, c=16, h=8, seed=0, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, c, h, h), generator=g) * 3 + 1
+    x[:, 0] = 2.5  # a constant channel: variance 0, so the clamp and eps decide
+    return (x * scale).to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("scale", [3e-3, 1.0, 3e4])
+@pytest.mark.parametrize("variant", ["affine", "adain"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_apply_composite_equals_the_old_formulas(dtype, variant, scale):
+    """``InstanceNorm`` and ``AdaIN`` (each now with its leaky ReLU) and
+    the composite give the bytes of the old norm, then ``leaky_relu``,
+    at small, unit and large magnitudes."""
+    from ppvision_tpu_torch.models.stargan import AdaIN, InstanceNorm, leaky_relu
+    from ppvision_tpu_torch.ops.instats import instance_moments, norm_apply_ref
+
+    dt = getattr(torch, dtype)
+    x = _norm_input(dt, scale=scale)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        if variant == "adain":
+            mod = AdaIN(8, 16, dtype=dt)
+            mod.fc.weight.copy_(torch.randn(mod.fc.weight.shape, generator=g) * 0.3)
+            mod.fc.bias.copy_(torch.randn(mod.fc.bias.shape, generator=g) * 0.3)
+            s = torch.randn((2, 8), generator=g).to(dt)
+            want, got = _old_adain(mod, x, s), mod(x, s)
+            h = torch.nn.functional.linear(s, mod.fc.weight.to(dt)) + mod.fc.bias.to(dt)
+            kw = dict(style=h)
+        else:
+            mod = InstanceNorm(16)
+            mod.weight.copy_(1 + 0.5 * torch.randn(16, generator=g))
+            mod.bias.copy_(0.5 * torch.randn(16, generator=g))
+            want, got = _old_instance_norm(mod, x), mod(x)
+            kw = dict(weight=mod.weight, bias=mod.bias)
+        want = leaky_relu(want)
+        m, m2 = instance_moments(x.permute(0, 2, 3, 1))
+        plain = norm_apply_ref(x, m, m2, 1e-5, float(torch.tensor(0.2, dtype=dt)), **kw)
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(plain), _bits(want))
+
+
+def _bits(t):
+    """The tensor's bytes as integers: signed zeros and NaNs compared too."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _old_decode(gen, z, s, hps=()):
+    """``Generator.decode`` as it was."""
+    x = z if gen.compute_dtype is None else z.to(gen.compute_dtype)
+    if gen.compute_dtype is not None:
+        s = s.to(gen.compute_dtype)
+    hp_by_size = dict(hps)
+    for blk in gen._modules["decode"]:
+        x = blk(x, s)
+        hp = hp_by_size.get(x.shape[-2]) if blk.upsample else None
+        if hp is not None:
+            if x.shape[0] != hp.shape[0]:
+                hp = hp.repeat(x.shape[0] // hp.shape[0], 1, 1, 1)
+            x = x + hp
+    return _old_to_rgb(gen, x)
+
+
+def _generator_grads(gen, x, s, masks):
+    gen.zero_grad()
+    xs = x.clone().requires_grad_(True)
+    z, hps = gen.encode(xs, masks)
+    out = gen.decode(z, s, hps)
+    cot = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+    (out.float() * cot).sum().backward()
+    return [out.detach(), xs.grad] + [p.grad.clone() for p in gen.parameters()]
+
+
+def test_generator_grads_on_the_cpu_are_unchanged(monkeypatch):
+    """The autograd path runs the composite: the Generator's output and
+    every gradient (the image's and each parameter's, the norms' affine
+    included) equal those of the frozen forwards bit for bit (f32, the
+    tiny widths, B = 1, the high-pass skips on)."""
+    from ppvision_tpu_torch.models import stargan as sg
+
+    gen = sg.init_params_(sg.Generator(img_size=TINY["img_size"], style_dim=TINY["style_dim"],
+                                       max_conv_dim=TINY["max_conv_dim"], w_hpf=1.0), seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in gen.modules():
+            if isinstance(m, sg.InstanceNorm):
+                m.weight.copy_(1 + 0.3 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.3 * torch.randn(m.bias.shape, generator=g))
+    x = torch.rand((1, 3, 64, 64), generator=g).contiguous(memory_format=torch.channels_last) * 2 - 1
+    s = torch.randn((1, TINY["style_dim"]), generator=g)
+    masks = tuple(torch.rand((1, 1, 256, 256), generator=g) for _ in range(2))
+    new = _generator_grads(gen, x, s, masks)
+    monkeypatch.setattr(sg.ResBlk, "forward", _old_resblk)
+    monkeypatch.setattr(sg.AdainResBlk, "forward", _old_adain_resblk)
+    monkeypatch.setattr(sg.Generator, "decode", _old_decode)
+    old = _generator_grads(gen, x, s, masks)
+    assert len(new) == len(old) > 2
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+
+
+def test_norm_apply_dispatch_sends_what_the_kernel_does_not_take_to_the_composite():
+    """CPU tensors always run the composite and count nothing; the
+    kernel's rule refuses f32, a C whose pixels are not whole 16-byte
+    loads, an f32 style and any call that needs a gradient, and takes
+    bf16 under no_grad even where the parameters are trainable."""
+    from ppvision_tpu_torch.ops import instats
+
+    x = _norm_input(torch.bfloat16, c=16)
+    m, m2 = instats.instance_moments(x.permute(0, 2, 3, 1))
+    w = torch.ones(16, requires_grad=True)
+    b = torch.zeros(16, requires_grad=True)
+    style = torch.zeros((2, 32), dtype=torch.bfloat16)
+    before = (instats.norm_apply.launches, instats.norm_apply.eager)
+    with torch.no_grad():
+        got = instats.norm_apply(x, m, m2, 1e-5, 0.2001953125, w, b)
+        assert torch.equal(got, instats.norm_apply_ref(x, m, m2, 1e-5, 0.2001953125, w, b))
+        assert instats.norm_apply_takes(x, w, b)
+        assert instats.norm_apply_takes(x, style=style)
+        assert not instats.norm_apply_takes(x.float(), w, b)
+        assert not instats.norm_apply_takes(x, style=style.float())
+        assert not instats.norm_apply_takes(_norm_input(torch.bfloat16, c=12))
+    assert (instats.norm_apply.launches, instats.norm_apply.eager) == before
+    assert not instats.norm_apply_takes(x, w, b)  # grad enabled, trainable weight
+    assert instats.norm_apply_takes(x)
+    assert not instats.norm_apply_takes(x.clone().requires_grad_(True))
+    assert not instats.norm_apply_takes(x, style=style.clone().requires_grad_(True))
